@@ -1,0 +1,17 @@
+"""Qwen3-8B: dense GQA with per-head qk-norm. [hf:Qwen/Qwen3-8B]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b",
+    arch_type="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=151936,
+    use_qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B",
+)

@@ -1,0 +1,16 @@
+"""StableLM-2-12B: dense GQA decoder. [hf:stabilityai/stablelm-2-1_6b family]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    arch_type="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=160,          # 5120 / 32
+    d_ff=13824,
+    vocab_size=100352,
+    rope_theta=10_000.0,
+    source="hf:stabilityai/stablelm-2-1_6b",
+)
