@@ -2,6 +2,7 @@
 kernels, then serve qwen3-8b at full width through ``ServingEngine``.
 
     python3 chip_smoke.py [--seed N]      # one GPU
+    python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
 
 Phases (any failure raises and exits non-zero):
   1. card: require CUDA, print the name and power limit (nvidia-smi);
@@ -9,16 +10,21 @@ Phases (any failure raises and exits non-zero):
      print build seconds and ptxas registers / shared memory;
   3. each kernel against its plain PyTorch version on the card, float32
      (TF32 off, tol 1e-4) and bfloat16 (one bf16 ulp, see ``TOL``), at the
-     test sweeps and at the serving path's shapes (packed prefill, a chunk
-     over a cache row, a packed chunk wave, decode); time kernel, plain
-     version and one library call (SDPA) with CUDA events, and compute each
-     kernel's bound;
+     test sweeps, at tile and split edges (segments across tile edges,
+     chunks over mostly invalid slots, rows that see no key, contexts at
+     split boundaries +-1 and 0) and at the serving path's shapes (packed
+     prefill, a chunk over a cache row, a packed chunk wave, decode); at
+     those four, time kernel, plain version and one library call (SDPA,
+     bool mask, ``enable_gqa``) with CUDA events, each rotating over copies
+     of its inputs so that every call finds them cold in L2, and compute
+     each kernel's bound from the call's inputs;
   4. the main path: qwen3-8b at its published widths and depth (36 layers,
      bf16, seeded random weights), max_batch 8, capacity 2048, default
      EngineConfig, 12 requests; checks lengths, launch counters, chunk waves
      and megastep windows; prints tokens/s of the unsynchronised run, then
      serves the same workload under ``torch.profiler`` for the device time
-     per prefill call and per decode iteration and the idle share;
+     per prefill call and per decode iteration, the aten launches per
+     decode iteration and the idle share (one pass over the raw events);
   5. greedy parity: full width cut to 4 layers, float32, TF32 off: the
      engine's greedy streams equal an isolated prefill + decode_step loop.
 The line before the last is the kernels' JSON record; the last line is
@@ -82,17 +88,41 @@ def phase_build() -> None:
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-def _time_ms(torch, fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
+L2_BYTES = 50e6
+
+
+def _copies(n_bytes: float) -> int:
+    """How many copies of a call's inputs make a rotation that overflows
+    the 50 MB L2 three times, so that each timed call finds its inputs
+    cold, as a serving layer does (every layer has its own weights and
+    cache)."""
+    return max(2, math.ceil(3 * L2_BYTES / n_bytes))
+
+
+def _time_ms(torch, fns, iters: int = 20) -> float:
+    """Mean device ms a call: ``iters`` calls, rotating over ``fns`` (each
+    the same call on its own copy of the inputs), captured once in a CUDA
+    graph and replayed between two CUDA events, so that the host's cost of
+    a launch (Python wrapper, ctypes) does not hide the device's time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:                   # warm: builds, attributes, allocator
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     b.record()
     torch.cuda.synchronize()
+    del graph
     return a.elapsed_time(b) / iters
 
 
@@ -171,6 +201,53 @@ def _flash_cases(torch, dtype, gen):
                     kv_segment_ids=kseg.int().to(dev),
                     q_positions=qpos.int().to(dev),
                     kv_positions=kpos.int().to(dev)))
+
+    # tile edges: segments that cross them, a chunk over a row that is
+    # mostly POS_INVALID, a window in positions mode, and rows that see no
+    # key (queries placed before every key: the mean of V)
+    lens = (63, 2, 66, 129)
+    seg = torch.repeat_interleave(torch.arange(4, device=dev),
+                                  torch.tensor(lens, device=dev))[None].int()
+    yield (f"tile-edge segments {lens} hd128", rnd(1, 260, 8, 128),
+           rnd(1, 260, 2, 128), rnd(1, 260, 2, 128), dict(segment_ids=seg))
+    for C, S, plen, win in [(1024, 40, 5, None), (256, 100, 200, 64)]:
+        slot = torch.arange(C, device=dev)
+        kpos = torch.cat([torch.where(slot < plen, slot, POS_INVALID),
+                          plen + torch.arange(S, device=dev)])[None].int()
+        qpos = (plen + torch.arange(S, device=dev))[None].int()
+        yield (f"tile-edge positions C{C} S{S} plen{plen} win{win} hd128",
+               rnd(1, S, 8, 128), rnd(1, C + S, 2, 128),
+               rnd(1, C + S, 2, 128),
+               dict(window=win, q_positions=qpos, kv_positions=kpos))
+    qpos = torch.arange(150, device=dev)[None].int()
+    kpos = torch.where(torch.arange(200, device=dev) < 30, POS_INVALID,
+                       100 + torch.arange(200, device=dev))[None].int()
+    yield ("rows with no valid key (q 150, k 200, 130 rows see none)",
+           rnd(1, 150, 8, 64), rnd(1, 200, 2, 64), rnd(1, 200, 2, 64),
+           dict(q_positions=qpos, kv_positions=kpos))
+
+
+def _decode_edge_cases(torch, dtype, gen):
+    """Yield (label, q, k_pages, v_pages, block_tables, context_lens) at
+    contexts on the split boundaries +-1, ctx 0, and a row ending in the
+    first split beside a full one."""
+    from repro_torch.kernels.paged_attention import _sm_count, plan_splits
+    B, H, K, hd, page, MP = 4, 16, 4, 128, 16, 64
+    cap = page * MP
+    split, n = plan_splits(B, K, cap, _sm_count(0))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    P = B * MP + 2
+    q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
+    bt = torch.randperm(P, device="cuda", generator=gen)[:B * MP].reshape(
+        B, MP).int()
+    for ctx in ([0, split - 1, split, split + 1], [1, cap, 3, cap - 1],
+                [2 * split + 1, 2 * split - 1, split * (n - 1), 0]):
+        cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        yield (f"split {split} x {n}, ctx {ctx}", q, kp, vp, bt, cl)
+
 
 
 def _main_segments(torch, T: int, n: int, gen):
@@ -257,6 +334,19 @@ def phase_kernels(torch, seed: int) -> dict:
                    paged_decode_attention(q, kp, vp, bt, cl),
                    ref.paged_decode_attention(q, kp, vp, bt, cl), dn,
                    paged_errs)
+        for label, q, kp, vp, bt, cl in _decode_edge_cases(torch, dtype, gen):
+            want = ref.paged_decode_attention(q, kp, vp, bt, cl)
+            got = paged_decode_attention(q, kp, vp, bt, cl)
+            _check(torch, f"paged {label}", got, want, dn, paged_errs)
+            if not torch.equal(got, paged_decode_attention(q, kp, vp, bt,
+                                                           cl)):
+                raise AssertionError(f"paged {label}: not repeatable")
+            B, page, K, hd = q.shape[0], kp.shape[1], kp.shape[2], q.shape[2]
+            rows_k, rows_v = kp[bt.long()], vp[bt.long()]
+            _check(torch, f"decode_attention rows {label}",
+                   ops.decode_attention(q, rows_k.reshape(B, -1, K, hd),
+                                        rows_v.reshape(B, -1, K, hd), cl),
+                   want, dn, paged_errs)
 
     # ---- the serving path's shapes, bf16: check, time, bound ------------
     dt = torch.bfloat16
@@ -264,41 +354,34 @@ def phase_kernels(torch, seed: int) -> dict:
     lens = _main_segments(torch, T, 8, cpu_gen)
     seg = torch.repeat_interleave(torch.arange(8),
                                   torch.tensor(lens))[None].int().cuda()
-    q = torch.randn(1, T, H, hd, generator=gen, device="cuda").to(dt)
-    k = torch.randn(1, T, K, hd, generator=gen, device="cuda").to(dt)
-    v = torch.randn(1, T, K, hd, generator=gen, device="cuda").to(dt)
-    for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
-        qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
-        _check(torch, f"flash main-path (1,{T},{H},{hd}) segments {lens}",
-               flash_attention(qq, kk, vv, segment_ids=seg),
-               ref.flash_attention(qq, kk, vv, segment_ids=seg), dn,
-               flash_errs)
-    flash_err_main = flash_errs[-1]
-    idx = torch.arange(T, device="cuda")
-    mask = ((idx[None, :] <= idx[:, None])
-            & (seg[0][:, None] == seg[0][None, :]))[None, None]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fl = {
-        "ms": _time_ms(torch, lambda: flash_attention(q, k, v,
-                                                      segment_ids=seg)),
-        "plain_ms": _time_ms(torch, lambda: ref.flash_attention(
-            q, k, v, segment_ids=seg), iters=5),
-        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-    }
-    pairs = sum(L * (L + 1) // 2 for L in lens)
-    fl_flops = 4.0 * pairs * H * hd
-    fl_bytes = 2.0 * (q.numel() * 2 + k.numel() + v.numel()) + 4.0 * T * 2
-    fl.update(_bound(fl_flops, fl_bytes, "bfloat16"))
-    for label, (q_, k_, v_, kw) in _main_chunk_cases(torch, gen):
+    flash_shapes = [(f"packed prefill (1,{T},{H},{hd}) segments {lens}",
+                     (torch.randn(1, T, H, hd, generator=gen, device="cuda"),
+                      torch.randn(1, T, K, hd, generator=gen, device="cuda"),
+                      torch.randn(1, T, K, hd, generator=gen, device="cuda"),
+                      dict(segment_ids=seg)))]
+    flash_shapes += list(_main_chunk_cases(torch, gen))
+    flash_recs = []
+    for label, (q, k, v, kw) in flash_shapes:
         for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
-            qq, kk, vv = q_.to(dtype), k_.to(dtype), v_.to(dtype)
+            qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
             _check(torch, f"flash main-path {label}",
                    flash_attention(qq, kk, vv, **kw),
                    ref.flash_attention(qq, kk, vv, **kw), dn, flash_errs)
-        log(f"[3 kernels] flash main-path {label} bf16 timing: kernel "
-            f"{_time_ms(torch, lambda: flash_attention(q_, k_, v_, **kw)):.4f}"
-            f" ms")
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        mask = _flash_mask(torch, q.shape[1], k.shape[1], kw)
+        pairs = int(mask.sum())
+        ints = sum(t.numel() for t in kw.values()
+                   if isinstance(t, torch.Tensor))
+        rec = _measure(
+            torch, f"flash {label}", (q, k, v),
+            lambda q, k, v: flash_attention(q, k, v, **kw),
+            lambda q, k, v: ref.flash_attention(q, k, v, **kw),
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=True),
+            flops=4.0 * pairs * H * hd,
+            nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * ints)
+        flash_recs.append(dict(rec, shape=label, max_abs_err=flash_errs[-1]))
 
     B, C = 8, 2048
     ck = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
@@ -306,44 +389,87 @@ def phase_kernels(torch, seed: int) -> dict:
     qd = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
     ctx = torch.randint(1, C + 1, (B,), generator=cpu_gen).int().cuda()
     ctx[0], ctx[1] = 1, C
-    mp = C // ops.page_size(C)
-    bt = (torch.arange(B)[:, None] * mp + torch.arange(mp)[None]).int().cuda()
     ps = ops.page_size(C)
+    mp = C // ps
+    bt = (torch.arange(B)[:, None] * mp + torch.arange(mp)[None]).int().cuda()
     for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
         a, b_, c_ = qd.to(dtype), ck.to(dtype), cv.to(dtype)
+        want = ref.paged_decode_attention(
+            a, b_.reshape(B * mp, ps, K, hd), c_.reshape(B * mp, ps, K, hd),
+            bt, ctx)
         _check(torch, f"decode_attention ({B},{C},{K},{hd}) "
                       f"ctx {ctx.tolist()}",
-               ops.decode_attention(a, b_, c_, ctx),
-               ref.paged_decode_attention(
-                   a, b_.reshape(B * mp, ps, K, hd),
-                   c_.reshape(B * mp, ps, K, hd), bt, ctx), dn, paged_errs)
-    paged_err_main = paged_errs[-1]
-    kp, vp = ck.reshape(B * mp, ps, K, hd), cv.reshape(B * mp, ps, K, hd)
+               ops.decode_attention(a, b_, c_, ctx), want, dn, paged_errs)
+        _check(torch, f"paged ({B},{C},{K},{hd}) through its block table",
+               paged_decode_attention(a, b_.reshape(B * mp, ps, K, hd),
+                                      c_.reshape(B * mp, ps, K, hd), bt, ctx),
+               want, dn, paged_errs)
+    paged_err_main = paged_errs[-2]
     dmask = (torch.arange(C, device="cuda")[None] < ctx[:, None].long())
-    dq, dk, dv = qd[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
-    pg = {
-        "ms": _time_ms(torch, lambda: paged_decode_attention(
-            qd, kp, vp, bt, ctx), iters=50),
-        "plain_ms": _time_ms(torch, lambda: ref.paged_decode_attention(
-            qd, kp, vp, bt, ctx)),
-        "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            dq, dk, dv, attn_mask=dmask[:, None, None], enable_gqa=True),
-            iters=50),
-    }
     toks = int(ctx.sum())
-    pg_flops = 4.0 * toks * H * hd
-    pg_bytes = 2.0 * (2 * toks * K * hd + 2 * qd.numel()) + 4.0 * B * (mp + 1)
-    pg.update(_bound(pg_flops, pg_bytes, "bfloat16"))
-    for name, rec in (("flash_prefill", fl), ("paged_decode", pg)):
-        log(f"[3 kernels] {name} main-path timing: kernel {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f}"
-            f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    pg = _measure(
+        torch, f"paged_decode ({B},{C},{K},{hd}) ctx {ctx.tolist()}",
+        (qd, ck, cv),
+        lambda q, k, v: ops.decode_attention(q, k, v, ctx),
+        lambda q, k, v: ref.paged_decode_attention(
+            q, k.view(B * mp, ps, K, hd), v.view(B * mp, ps, K, hd), bt, ctx),
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=dmask[:, None, None], enable_gqa=True),
+        flops=4.0 * toks * H * hd,
+        nbytes=2.0 * (2 * toks * K * hd + 2 * qd.numel()) + 4.0 * B,
+        iters=50)
     return {
-        "flash_prefill": dict(fl, max_abs_err=flash_err_main,
-                              max_abs_err_all=max(flash_errs)),
+        "flash_prefill": dict(flash_recs[0], max_abs_err_all=max(flash_errs),
+                              shapes=flash_recs),
         "paged_decode": dict(pg, max_abs_err=paged_err_main,
                              max_abs_err_all=max(paged_errs)),
     }
+
+
+def _flash_mask(torch, Sq: int, Sk: int, kw: dict):
+    """The (B, Sq, Sk) causal mask of ``ref.flash_attention`` for these
+    mask arguments: what a library call is given, and what the bound
+    counts."""
+    from repro_torch.kernels.ref import POS_INVALID
+    if kw.get("q_positions") is not None:
+        ii = kw["q_positions"][:, :, None]
+        jj = kw["kv_positions"][:, None, :]
+        mask = (jj < POS_INVALID) & (jj <= ii)
+    else:
+        i = torch.arange(Sq, device="cuda")
+        mask = (i[None, :] <= i[:, None])[None]
+    if kw.get("segment_ids") is not None:
+        sk = kw.get("kv_segment_ids")
+        sk = kw["segment_ids"] if sk is None else sk
+        mask = mask & (kw["segment_ids"][:, :, None] == sk[:, None, :])
+    return mask
+
+
+def _measure(torch, label, inputs, kernel, plain, library, *, flops,
+             nbytes, iters: int = 20) -> dict:
+    """Time the kernel, its plain version and one library call on the
+    same inputs, each rotating over enough copies of ``inputs`` that every
+    call finds them cold in L2; the bound from this call's flops and
+    bytes."""
+    n = _copies(sum(t.numel() * t.element_size() for t in inputs))
+    sets = [inputs] + [tuple(t.clone() for t in inputs)
+                       for _ in range(n - 1)]
+    rec = {"ms": _time_ms(torch, [lambda s=s: kernel(*s) for s in sets],
+                          iters),
+           "plain_ms": _time_ms(torch, [lambda s=s: plain(*s) for s in sets],
+                                5),
+           "library_ms": _time_ms(torch, [lambda s=s: library(*s)
+                                          for s in sets], iters),
+           "copies": n}
+    del sets
+    rec.update(_bound(flops, nbytes, "bfloat16"))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    log(f"[3 kernels] {label} bf16 timing ({n} input copies, cold L2): "
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound")
+    return rec
 
 
 def _bound(flops: float, nbytes: float, dtype_name: str) -> dict:
@@ -401,14 +527,20 @@ def phase_main_path(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # an older checkout (``--profile-src``) has no combine kernel
+    has_combine = hasattr(paged_decode_attention, "combine_launches")
     flash_attention.launches = 0
     paged_decode_attention.launches = 0
+    if has_combine:
+        paged_decode_attention.combine_launches = 0
     t0 = time.monotonic()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {"flash_prefill": flash_attention.launches,
                 "paged_decode": paged_decode_attention.launches}
+    combine = paged_decode_attention.combine_launches if has_combine \
+        else None
 
     for g in reqs:
         if g.t_done is None or len(g.output) != g.params.max_new_tokens:
@@ -422,6 +554,15 @@ def phase_main_path(torch, seed: int) -> dict:
         if n <= 0 or n % L:
             raise AssertionError(f"{name}: {n} launches, not a positive "
                                  f"multiple of {L}")
+    if launches["paged_decode"] != L * eng.decode_iters \
+            or combine not in (None, launches["paged_decode"]):
+        raise AssertionError(
+            f"paged_decode: {launches['paged_decode']} launches and {combine}"
+            f" combines for {eng.decode_iters} decode iterations of {L} "
+            f"layers")
+    if eng.n_blocking_syncs:
+        raise AssertionError(f"blocking syncs on the main path: "
+                             f"{eng.sync_counts}")
     if eng.n_chunk_calls <= 0:
         raise AssertionError("no chunk wave ran on the main path")
     if eng.n_mega_windows <= 0:
@@ -437,6 +578,7 @@ def phase_main_path(torch, seed: int) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "sync_counts": dict(eng.sync_counts),
         "launches": launches,
+        "paged_decode_combine_launches": combine,
     }
     log(f"[4 main] {json.dumps(res)}")
     params = eng.params
@@ -445,18 +587,76 @@ def phase_main_path(torch, seed: int) -> dict:
     return res
 
 
+KERNEL_GROUPS = (   # (the port's kernels, of this checkout and older ones)
+    ("flash_prefill", re.compile(r"\(anonymous namespace\)::flash_\w*kernel")),
+    ("paged_decode",
+     re.compile(r"\(anonymous namespace\)::paged_decode_\w*kernel")),
+    ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
+)
+
+
+def read_profile(prof) -> dict:
+    """One pass over the profiler's raw events (no event tree).
+
+    A device kernel that aten launches is linked to the op that launched
+    it; the op's start on the host falls inside one of the engine's ranges
+    (``SPANS``), which owns the kernel. The two attention kernels are
+    launched through ctypes, outside any op, and are given to their phase
+    by name. Returns device us and launches by kernel group, device us and
+    launches of the aten kernels in each range, and the busiest kernels."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans, op_start, dev = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            name = e.name()
+            if name in SPANS:
+                spans.append((e.start_ns(), e.end_ns(), name))
+            elif e.linked_correlation_id() == 0:
+                op_start[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == DeviceType.CUDA and e.name() not in SPANS:
+            # (the ranges also show on the device timeline: not kernels)
+            dev.append((e.linked_correlation_id(), e.name(),
+                        e.duration_ns() / 1e3))
+    spans.sort()
+    starts = [s[0] for s in spans]
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    group_n = dict.fromkeys(groups, 0)
+    span_us = dict.fromkeys(SPANS, 0.0)
+    span_n = dict.fromkeys(SPANS, 0)
+    by_name: dict = {}
+    for link, name, us in dev:
+        group = next((g for g, rx in KERNEL_GROUPS if rx.search(name)),
+                     "other")
+        groups[group] += us
+        group_n[group] += 1
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += us
+        tot[1] += 1
+        if group in ("flash_prefill", "paged_decode"):
+            continue
+        t = op_start.get(link)
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t < spans[i][1]:
+            span_us[spans[i][2]] += us
+            span_n[spans[i][2]] += 1
+    top = sorted(((v[0], v[1], k) for k, v in by_name.items()),
+                 reverse=True)[:8]
+    return {"groups": groups, "group_launches": group_n, "span_us": span_us,
+            "span_launches": span_n, "top": top,
+            "combine_launches": sum(v[1] for k, v in by_name.items()
+                                    if "paged_decode_combine" in k)}
+
+
 def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
     """Where the time goes: the phase-4 workload again, on a fresh engine
-    with the same weights and seed, under ``torch.profiler``.
-
-    The profiler ties a kernel that aten launches to the op, and so to the
-    engine's range (``SPANS``), that launched it, but a kernel launched
-    through ctypes to no op at all. So a phase's device time is that of the
-    aten kernels inside its ranges plus its attention kernel, taken by name
-    (flash: prefill waves and chunk calls; paged decode: decode). The idle
-    share is 1 - (device kernel time / wall time of the unprofiled run of
-    the same workload)."""
-    from torch.autograd import DeviceType
+    with the same weights and seed, under ``torch.profiler``, read in one
+    pass by ``read_profile``. A phase's device time is that of the aten
+    kernels inside its ranges plus its attention kernels (flash: prefill
+    waves and chunk calls; paged decode: decode). The idle share is
+    1 - (device kernel time / wall time of the unprofiled run of the same
+    workload)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
 
@@ -470,28 +670,12 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
         eng.run(reqs)
         torch.cuda.synchronize()
     wall_prof = time.monotonic() - t0
-    groups = {"flash_prefill": 0.0, "paged_decode": 0.0, "gemm": 0.0,
-              "other": 0.0}
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.key in SPANS:
-            continue                  # host rows and the ranges' own spans
-        us = float(ev.self_device_time_total)
-        rows.append((us, ev.count, ev.key))
-        name = ev.key.lower()
-        key = ("flash_prefill" if "flash_prefill" in name else
-               "paged_decode" if "paged_decode" in name else
-               "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
-                                                 "cutlass")) else "other")
-        groups[key] += us
-    span_us = dict.fromkeys(SPANS, 0.0)
-    span_host_us = dict.fromkeys(SPANS, 0.0)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.key in SPANS:
-            span_us[ev.key] += float(ev.device_time_total)
-            span_host_us[ev.key] += float(ev.cpu_time_total)
+    t1 = time.monotonic()
+    rp = read_profile(prof)
+    del prof
     log(f"[4 profile] profiled run {wall_prof:.1f}s, reading the profile "
-        f"{time.monotonic() - t0 - wall_prof:.1f}s")
+        f"{time.monotonic() - t1:.1f}s")
+    groups, span_us = rp["groups"], rp["span_us"]
     busy_us = sum(groups.values())
     if busy_us <= 0.0:
         log("[4 profile] the profiler recorded no device time: device busy "
@@ -500,6 +684,7 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
     pf_us = (span_us["engine.prefill_wave"] + span_us["engine.prefill_chunks"]
              + groups["flash_prefill"])
     dec_us = span_us["engine.decode"] + groups["paged_decode"]
+    iters = eng.decode_iters
 
     def ms_per(us, n):
         return us / 1e3 / n if us > 0.0 and n > 0 else None
@@ -508,8 +693,13 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
            "device_busy_s": busy_us / 1e6,
            "idle_share": 1.0 - busy_us / 1e6 / wall if busy_us else None,
            "kernel_ms": {k: v / 1e3 for k, v in groups.items()},
+           "kernel_launches": rp["group_launches"],
+           "paged_decode_combine_launches": rp["combine_launches"],
            "prefill_device_ms_per_call": ms_per(pf_us, n_pf),
-           "decode_device_ms_per_iter": ms_per(dec_us, eng.decode_iters),
+           "decode_device_ms_per_iter": ms_per(dec_us, iters),
+           "decode_kernel_ms_per_iter": ms_per(groups["paged_decode"], iters),
+           "aten_launches_per_decode_iter":
+               rp["span_launches"]["engine.decode"] / iters if iters else None,
            "aten_device_ms_per_wave": ms_per(
                span_us["engine.prefill_wave"], eng.n_prefill_waves),
            "aten_device_ms_per_chunk_call": ms_per(
@@ -517,13 +707,12 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
            "phase_share_of_busy": (pf_us + dec_us) / busy_us
            if busy_us else None,
            "span_aten_device_ms": {k: v / 1e3 for k, v in span_us.items()},
-           "span_host_ms_profiled": {k: v / 1e3
-                                     for k, v in span_host_us.items()},
+           "span_aten_launches": rp["span_launches"],
            "prefill_waves": eng.n_prefill_waves,
            "chunk_calls": eng.n_chunk_calls,
-           "decode_iters": eng.decode_iters}
+           "decode_iters": iters}
     log(f"[4 profile] {json.dumps(res)}")
-    for us, n, key in sorted(rows, reverse=True)[:8]:
+    for us, n, key in rp["top"]:
         log(f"[4 profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
     return res
 
@@ -582,7 +771,14 @@ def _isolated_greedy(torch, model, cfg, params, prompt, n, capacity):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-src", metavar="DIR",
+                    help="only serve and profile the phase-4 workload, "
+                         "with the repro_torch package found under DIR "
+                         "(the src/ of another checkout, for a before/after "
+                         "comparison); prints no result line")
     args = ap.parse_args(argv)
+    if args.profile_src:
+        sys.path.insert(0, str(Path(args.profile_src).resolve()))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -590,8 +786,13 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     phase_card(torch)
     phase_build()
+    if args.profile_src:
+        log(f"[profile-src] repro_torch from {repro_torch.__file__}")
+        phase_main_path(torch, args.seed)
+        return 0
     kern = phase_kernels(torch, args.seed)
-    launches = phase_main_path(torch, args.seed)["launches"]
+    main = phase_main_path(torch, args.seed)
+    launches = main["launches"]
     phase_parity(torch, args.seed)
     record = {"kernels": [
         {"name": "flash_prefill", "route": "cuda",
@@ -600,14 +801,19 @@ def main(argv=None) -> int:
          "launches": launches["flash_prefill"],
          **{k: kern["flash_prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "share_of_bound")},
+         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "share_of_bound", "max_abs_err")}
+                    for r in kern["flash_prefill"]["shapes"]]},
         {"name": "paged_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:122",
          "launches": launches["paged_decode"],
+         "combine_launches": main["paged_decode_combine_launches"],
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "share_of_bound")}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from . import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+TILE = 64               # q rows and keys a tile of the kernel
 
 
 def _lib():
@@ -22,8 +23,8 @@ def _lib():
     lib = load("flash_prefill")
     fn = lib.flash_prefill
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -76,11 +77,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pos_q = _i32(q_positions, (B, Sq), dev)
     pos_k = _i32(kv_positions, (B, Sk), dev)
     out = torch.empty_like(q)
+    tiles = torch.empty(B * (4 * -(-Sq // TILE) + 5 * -(-Sk // TILE)),
+                        dtype=torch.int32, device=dev)
     ptr = lambda a: None if a is None else a.data_ptr()
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  ptr(seg_q), ptr(seg_k), ptr(pos_q), ptr(pos_k),
-                 B, Sq, Sk, H, K, hd, _DTYPES[q.dtype], int(causal),
-                 int(window or 0), float(softcap or 0.0),
+                 tiles.data_ptr(), B, Sq, Sk, H, K, hd, _DTYPES[q.dtype],
+                 int(causal), int(window or 0), float(softcap or 0.0),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "

@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from .flash_prefill import flash_attention as _flash
+from .paged_attention import decode_rows as _decode_rows
 from .paged_attention import paged_decode_attention as _paged
 
 
@@ -49,15 +50,9 @@ def decode_attention(q, cache_k, cache_v, context_lens, *,
                      softcap: Optional[float] = None) -> torch.Tensor:
     """Decode attention over a contiguous per-request cache row.
 
-    q (B,H,hd); cache_k/v (B,C,K,hd); context_lens (B,) valid slots. Each
-    row is viewed (without a copy) as C/page pages under an identity block
-    table."""
-    B, C, K, hd = cache_k.shape
-    ps = page_size(C)
-    mp = C // ps
-    kp = cache_k.reshape(B * mp, ps, K, hd)
-    vp = cache_v.reshape(B * mp, ps, K, hd)
-    bt = (torch.arange(B, device=q.device)[:, None] * mp
-          + torch.arange(mp, device=q.device)[None, :]).to(torch.int32)
-    return _paged(q, kp, vp, bt, context_lens.to(torch.int32),
-                  softcap=softcap)
+    q (B,H,hd); cache_k/v (B,C,K,hd); context_lens (B,) valid slots. On the
+    card the kernel addresses each row's slots directly, with no block
+    table; the plain version views each row (without a copy) as C/page
+    pages under an identity block table."""
+    return _decode_rows(q, cache_k, cache_v, context_lens,
+                        page_size(cache_k.shape[1]), softcap=softcap)

@@ -101,3 +101,80 @@ def test_wrappers_refuse_unsupported_inputs(card):
     with pytest.raises(TypeError):
         flash_attention(q.half()[..., :32], q.half()[..., :32],
                         q.half()[..., :32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,K", [(64, 16, 4), (128, 16, 4),
+                                    (128, 16, 1)])
+def test_paged_decode_split_edges(card, dtype, hd, H, K):
+    """Contexts at the split boundaries +-1, ctx 0, and a row that ends in
+    the first split beside a full one, through a block table and through
+    the contiguous rows (no table); results repeat bit for bit. G = 4 and
+    G = 16 (every row of the tensor-core tile a query head)."""
+    from repro_torch.kernels.paged_attention import _sm_count, plan_splits
+    g = card
+    B, page, MP = 4, 16, 64
+    cap = page * MP
+    split, n_split = plan_splits(B, K, cap, _sm_count(0))
+    assert n_split > 2
+    P = B * MP + 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
+    bt = torch.randperm(P, generator=torch.Generator().manual_seed(1))[
+        :B * MP].reshape(B, MP).int().cuda()
+    ck, cv = rnd(B, cap, K, hd), rnd(B, cap, K, hd)
+    ident = (torch.arange(B)[:, None] * (cap // 128)
+             + torch.arange(cap // 128)).int().cuda()
+    for ctx in ([0, split - 1, split, split + 1], [1, cap, 3, cap - 1],
+                [2 * split + 1, 2 * split - 1, split * (n_split - 1), 0]):
+        cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        n0 = (paged_decode_attention.launches,
+              paged_decode_attention.combine_launches)
+        got = paged_decode_attention(q, kp, vp, bt, cl)
+        _close(got, ref.paged_decode_attention(q, kp, vp, bt, cl), dtype)
+        assert torch.equal(got, paged_decode_attention(q, kp, vp, bt, cl))
+        rows = ops.decode_attention(q, ck, cv, cl)
+        _close(rows, ref.paged_decode_attention(
+            q, ck.reshape(-1, 128, K, hd), cv.reshape(-1, 128, K, hd),
+            ident, cl), dtype)
+        assert (paged_decode_attention.launches,
+                paged_decode_attention.combine_launches) == (n0[0] + 3,
+                                                             n0[1] + 3)
+        for b, c in enumerate(ctx):
+            if c == 0:
+                assert torch.count_nonzero(got[b]) == 0
+                assert torch.count_nonzero(rows[b]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tile_edges(card, dtype):
+    """Segments that cross tile edges, a chunk over a row that is mostly
+    POS_INVALID, a window in positions mode, and rows that see no key
+    (every tile skipped for them: they get the mean of V)."""
+    g = card
+    hd, H, K = 128, 8, 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    lens = (63, 2, 66, 129)
+    S = sum(lens)
+    seg = torch.repeat_interleave(torch.arange(4), torch.tensor(lens))
+    seg = seg[None].int().cuda()
+    q, k, v = rnd(1, S, H, hd), rnd(1, S, K, hd), rnd(1, S, K, hd)
+    _close(flash_attention(q, k, v, segment_ids=seg),
+           ref.flash_attention(q, k, v, segment_ids=seg), dtype)
+    for C, S, plen, win in [(1024, 40, 5, None), (256, 100, 200, 64)]:
+        slot = torch.arange(C, device="cuda")
+        kpos = torch.cat([torch.where(slot < plen, slot, POS_INVALID),
+                          plen + torch.arange(S, device="cuda")])[None]
+        qpos = (plen + torch.arange(S, device="cuda"))[None].int()
+        q, k, v = rnd(1, S, H, hd), rnd(1, C + S, K, hd), rnd(1, C + S, K, hd)
+        kw = dict(q_positions=qpos, kv_positions=kpos.int(), window=win)
+        _close(flash_attention(q, k, v, **kw),
+               ref.flash_attention(q, k, v, **kw), dtype)
+    Sq, Sk = 150, 200          # rows 0..99 precede every key
+    qpos = torch.arange(Sq, device="cuda")[None].int()
+    kpos = torch.where(torch.arange(Sk, device="cuda") < 30, POS_INVALID,
+                       100 + torch.arange(Sk, device="cuda"))[None].int()
+    q, k, v = rnd(1, Sq, H, hd), rnd(1, Sk, K, hd), rnd(1, Sk, K, hd)
+    got = flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos)
+    _close(got, ref.flash_attention(q, k, v, q_positions=qpos,
+                                    kv_positions=kpos), dtype)
