@@ -26,9 +26,28 @@ Phases (any failure raises and exits non-zero):
      per prefill call and per decode iteration, the aten launches per
      decode iteration and the idle share (one pass over the raw events);
   5. greedy parity: full width cut to 4 layers, float32, TF32 off: the
-     engine's greedy streams equal an isolated prefill + decode_step loop.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+     engine's greedy streams equal an isolated prefill + decode_step loop;
+  6. KV migration and the fleet (``repro_torch.cluster``), sharing the
+     weights of phases 4 and 5:
+     a. full width, bf16: a ~1500-token request prefilled on engine A,
+        exported and injected into engine B; B's cache row equals A's
+        bit for bit, the CRC holds, and B finishes the request;
+     b. a unified 2-instance fleet (least-kvc router) at full width on
+        the phase-4 workload: every request complete, conservation and
+        ``check_fleet_invariants`` hold, both instances serve, decode
+        launches equal 36 x the engines' decode iterations;
+     c. the same pair disaggregated (prefill, decode): 12 migrations, no
+        fallback, invariants hold;
+     d. phase 5's setting on a 3-instance disaggregated fleet with a kill
+        of instance 1 at t=6 and one corrupted KV migration: the greedy
+        streams equal the fault-free engine's bit for bit, the CRC
+        rejects the image and the killed instance's work is recovered
+        (run right after phase 5, whose weights it takes and frees).
+     Each path counts kernel launches from zero; 6b and 6c print tokens/s
+     of the unsynchronised run and peak memory beside the card's name and
+     power limit.
+The line before the last is the kernels' JSON record (launches summed over
+phases 4 and 6); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -584,7 +603,7 @@ def phase_main_path(torch, seed: int) -> dict:
     params = eng.params
     del eng
     res["profile"] = phase_profile(torch, cfg, params, seed, wall)
-    return res
+    return res, params
 
 
 KERNEL_GROUPS = (   # (the port's kernels, of this checkout and older ones)
@@ -720,7 +739,7 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
 # --------------------------------------------------------------------------- #
 # phase 5: greedy parity at full width, 4 layers, float32
 # --------------------------------------------------------------------------- #
-def phase_parity(torch, seed: int) -> None:
+def phase_parity(torch, seed: int):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model
@@ -748,6 +767,7 @@ def phase_parity(torch, seed: int) -> None:
                                  f"{g.output} != isolated {want}")
     log(f"[5 parity] {len(reqs)} greedy streams equal to isolated "
         f"prefill + decode_step")
+    return cfg, eng.params
 
 
 def _isolated_greedy(torch, model, cfg, params, prompt, n, capacity):
@@ -768,6 +788,242 @@ def _isolated_greedy(torch, model, cfg, params, prompt, n, capacity):
 
 
 # --------------------------------------------------------------------------- #
+# phase 6: KV migration and the fleet
+# --------------------------------------------------------------------------- #
+def _zero_launches() -> None:
+    from repro_torch.kernels.flash_prefill import flash_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    flash_attention.launches = 0
+    paged_decode_attention.launches = 0
+    paged_decode_attention.combine_launches = 0
+
+
+def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
+    """The counts since ``_zero_launches``: flash a positive multiple of
+    the depth, decode a multiple with one combine each, and, when the
+    path's windows all ran to their end, depth x decode iterations."""
+    from repro_torch.kernels.flash_prefill import flash_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    n = {"flash_prefill": flash_attention.launches,
+         "paged_decode": paged_decode_attention.launches,
+         "combine": paged_decode_attention.combine_launches}
+    if n["flash_prefill"] <= 0 or n["flash_prefill"] % L:
+        raise AssertionError(f"[{tag}] flash_prefill: {n} launches, not a "
+                             f"positive multiple of {L}")
+    if n["paged_decode"] <= 0 or n["paged_decode"] % L \
+            or n["combine"] != n["paged_decode"]:
+        raise AssertionError(f"[{tag}] paged_decode: {n}")
+    if decode_iters is not None and n["paged_decode"] != L * decode_iters:
+        raise AssertionError(f"[{tag}] paged_decode: {n['paged_decode']} "
+                             f"launches for {decode_iters} decode "
+                             f"iterations of {L} layers")
+    return n
+
+
+def phase_kv_roundtrip(torch, cfg, params, seed: int) -> dict:
+    """6a: export a prefilled ~1500-token request from engine A and inject
+    it into engine B (shared weights); the image is a byte copy."""
+    import numpy as np
+    from repro_torch.models.config import ATTN
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+    from repro_torch.serving.engine import kv_checksum
+    L = cfg.num_layers
+    a = ServingEngine(cfg, params, max_batch=8, capacity=2048, seed=seed,
+                      device="cuda")
+    b = ServingEngine(cfg, params, max_batch=8, capacity=2048,
+                      seed=seed + 1, device="cuda")
+    rng = np.random.default_rng(seed + 11)
+    g = GenRequest(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(1400, 1601)))],
+        params=SamplingParams(max_new_tokens=32))
+    _zero_launches()
+    t = 0.0
+    a.submit(g, t)
+    while not a.scheduler.gt_queue:
+        t += 1.0
+        a.step(t)
+    slot = a.slot_of[g.rid]
+    ctx = int(a._dev["pos"][slot])
+    row = {n: a.caches[ATTN][n][:, slot, :ctx].clone() for n in ("k", "v")}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    payload = a.export_kv(g.rid)
+    t_export = time.monotonic() - t0
+    if payload["kv"] is None or payload["ctx"] != ctx:
+        raise AssertionError(f"[6a] export gave no image of {ctx} positions")
+    if kv_checksum(payload["kv"]) != payload["kv_crc"]:
+        raise AssertionError("[6a] exported image fails its own CRC")
+    t0 = time.monotonic()
+    rid = b.inject_kv(payload, t)
+    torch.cuda.synchronize()
+    t_inject = time.monotonic() - t0
+    if rid is None or b.n_kv_rejects or rid not in b.slot_of:
+        raise AssertionError("[6a] inject did not seat the image")
+    for n in ("k", "v"):
+        if not torch.equal(b.caches[ATTN][n][:, b.slot_of[rid], :ctx],
+                           row[n]):
+            raise AssertionError(f"[6a] B's cache row {n} differs from A's")
+    while b.has_work() and t < 1000:
+        t += 1.0
+        b.step(t)
+    b.flush()
+    if g.status != "completed" or len(g.output) != 32:
+        raise AssertionError(f"[6a] B did not finish the request: "
+                             f"{g.status}, {len(g.output)}/32 tokens")
+    launches = _read_launches("6a", L, a.decode_iters + b.decode_iters)
+    image_mb = sum(t.numel() * t.element_size()
+                   for t in payload["kv"][ATTN].values()) / 1e6
+    res = {"ctx": ctx, "image_mb": image_mb, "export_s": t_export,
+           "inject_s": t_inject, "export_reads": a.n_export_reads,
+           "sync_counts_a": dict(a.sync_counts), "launches": launches}
+    log(f"[6a kv] bitwise round trip at full width, bf16: {json.dumps(res)}")
+    return res
+
+
+def phase_fleet_run(torch, smi: str, cfg, params, seed: int, roles) -> dict:
+    """6b / 6c: a 2-instance fleet at full width on the phase-4 workload."""
+    from repro_torch.cluster import EngineFleet, check_fleet_invariants
+    tag = "6b unified" if roles is None else "6c disagg"
+    L = cfg.num_layers
+    held = torch.cuda.memory_allocated()     # the weights and leftovers
+    fleet = EngineFleet(cfg, n_instances=2, roles=roles, router="least-kvc",
+                        seed=seed, params=params, max_batch=8,
+                        capacity=2048)
+    reqs = _workload(cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.monotonic()
+    fleet.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    engines = [i.engine for i in fleet.instances]
+    iters = sum(e.decode_iters for e in engines)
+    launches = _read_launches(tag, L, iters)
+    for g in reqs:
+        if g.status != "completed" or \
+                len(g.output) != g.params.max_new_tokens:
+            raise AssertionError(f"[{tag}] request incomplete: {g.status} "
+                                 f"{len(g.output)}/"
+                                 f"{g.params.max_new_tokens}")
+    cons = fleet.conservation()
+    if not cons["ok"]:
+        raise AssertionError(f"[{tag}] conservation: {cons}")
+    check_fleet_invariants(fleet)        # raises on any violation
+    served = [len(e.scheduler.completed) for e in engines]
+    if roles is None and min(served) < 1:
+        raise AssertionError(f"[{tag}] an instance served nothing: {served}")
+    if roles is not None and (fleet.n_migrations != len(reqs)
+                              or fleet.n_kv_fallbacks):
+        raise AssertionError(f"[{tag}] {fleet.n_migrations} migrations, "
+                             f"{fleet.n_kv_fallbacks} fallbacks")
+    toks = sum(len(g.output) for g in reqs)
+    res = {"wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_before_fleet_gb": held / 1e9,
+           "served": served, "decode_iters": [e.decode_iters
+                                              for e in engines],
+           "migrations": fleet.n_migrations,
+           "kv_fallbacks": fleet.n_kv_fallbacks,
+           "export_reads": sum(e.n_export_reads for e in engines),
+           "sync_counts": [dict(e.sync_counts) for e in engines],
+           "launches": launches, "card": smi}
+    log(f"[{tag}] {json.dumps(res)}")
+    return res
+
+
+def _top2_gap(torch, model, cfg, params, prompt, prefix) -> float:
+    """Top-2 logit gap of an isolated prefill of prompt + prefix."""
+    toks = torch.tensor([list(prompt) + list(prefix)], device="cuda")
+    logits, _ = model.prefill(cfg, params, toks, last_only=True)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_chaos(torch, cfg, params, seed: int) -> dict:
+    """6d: phase 5's setting (float32, TF32 off, 4 layers) on a
+    disaggregated 3-instance fleet: one corrupted KV migration and a kill
+    of decode instance 1 at t=6, against the fault-free engine."""
+    import numpy as np
+    from repro_torch.cluster import (EngineFleet, FaultEvent, FaultInjector,
+                                     RecoveryConfig, check_fleet_invariants)
+    from repro_torch.models import model
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+
+    def workload():
+        rng = np.random.default_rng(seed + 7)
+        return [GenRequest(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(16, 300)))],
+            params=SamplingParams(max_new_tokens=int(rng.integers(12, 32))))
+            for _ in range(8)]
+    t0 = time.monotonic()
+    kw = dict(max_batch=4, capacity=512, seed=seed, params=params)
+    ref = ServingEngine(cfg, device="cuda", **kw)
+    ref_reqs = workload()
+    ref.run(ref_reqs)
+    fleet = EngineFleet(
+        cfg, n_instances=3, roles=("prefill", "decode", "decode"),
+        router="least-kvc",
+        faults=FaultInjector(schedule=[
+            FaultEvent(t=1.0, kind="corrupt_kv", count=1),
+            FaultEvent(t=6.0, kind="kill", target=1)]),
+        recovery=RecoveryConfig(max_retries=4, backoff_base=1.0), **kw)
+    reqs = workload()
+    _zero_launches()
+    fleet.run(reqs)
+    torch.cuda.synchronize()
+    # a kill can cut a megastep window short: its launched iterations are
+    # never replayed, so decode launches are checked as a multiple only
+    launches = _read_launches("6d chaos", cfg.num_layers)
+    for i, (g, r) in enumerate(zip(reqs, ref_reqs)):
+        if g.output != r.output:
+            j = next((j for j, (x, y) in enumerate(zip(g.output, r.output))
+                      if x != y), min(len(g.output), len(r.output)))
+            gap = _top2_gap(torch, model, cfg, params, r.prompt,
+                            r.output[:j])
+            raise AssertionError(
+                f"[6d chaos] request {i}: stream differs from the "
+                f"fault-free run at token {j} (fleet {g.output[j:j + 4]}, "
+                f"engine {r.output[j:j + 4]}); top-2 logit gap there "
+                f"{gap:.3e}")
+    cons = fleet.conservation()
+    report = check_fleet_invariants(fleet)
+    if not (cons["ok"] and cons["kv_rejects"] >= 1
+            and fleet.n_recovered >= 1 and not fleet.instances[1].alive):
+        raise AssertionError(f"[6d chaos] {cons}, recovered "
+                             f"{fleet.n_recovered}")
+    res = {"faults": fleet.faults.log, "recovered": fleet.n_recovered,
+           "kv_rejects": cons["kv_rejects"],
+           "migrations": fleet.n_migrations, "completed": cons["completed"],
+           "invariants_ok": report["ok"], "launches": launches,
+           "seconds": time.monotonic() - t0}
+    log(f"[6d chaos] greedy streams equal to the fault-free engine under "
+        f"a kill and a corrupted migration: {json.dumps(res)}")
+    return res
+
+
+def phase_fleet(torch, smi: str, params, chaos: dict, seed: int) -> dict:
+    """6a-6c at full width on phase 4's weights; ``chaos`` is 6d's
+    result."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3_8b")
+    t0 = time.monotonic()
+    parts = {"6a": phase_kv_roundtrip(torch, cfg, params, seed)}
+    torch.cuda.empty_cache()
+    parts["6b"] = phase_fleet_run(torch, smi, cfg, params, seed, None)
+    torch.cuda.empty_cache()
+    parts["6c"] = phase_fleet_run(torch, smi, cfg, params, seed,
+                                  ("prefill", "decode"))
+    parts["6d"] = chaos
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("flash_prefill", "paged_decode")}
+    combine = sum(p["launches"]["combine"] for p in parts.values())
+    log(f"[6 fleet] phase 6a-6c took {time.monotonic() - t0:.1f}s, 6d "
+        f"{chaos['seconds']:.1f}s; launches {launches}")
+    return {"parts": parts, "launches": launches, "combine_launches": combine}
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -784,16 +1040,20 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is false)")
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    phase_card(torch)
+    smi = phase_card(torch)
     phase_build()
     if args.profile_src:
         log(f"[profile-src] repro_torch from {repro_torch.__file__}")
         phase_main_path(torch, args.seed)
         return 0
     kern = phase_kernels(torch, args.seed)
-    main = phase_main_path(torch, args.seed)
-    launches = main["launches"]
-    phase_parity(torch, args.seed)
+    main, params = phase_main_path(torch, args.seed)
+    # phase 6d takes phase 5's weights, which are freed before 6a-6c
+    chaos = phase_chaos(torch, *phase_parity(torch, args.seed), args.seed)
+    fleet = phase_fleet(torch, smi, params, chaos, args.seed)
+    del params
+    launches = {k: main["launches"][k] + fleet["launches"][k]
+                for k in main["launches"]}
     record = {"kernels": [
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -810,7 +1070,8 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:122",
          "launches": launches["paged_decode"],
-         "combine_launches": main["paged_decode_combine_launches"],
+         "combine_launches": main["paged_decode_combine_launches"]
+         + fleet["combine_launches"],
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "share_of_bound")}},

@@ -25,6 +25,10 @@ reference's:
     engine runs K iterations back to back in one host loop
     (``_mega_fn``) and replays the K scheduler iterations against the
     (K, B) token matrix.
+  * KV migration: ``export_kv`` / ``inject_kv`` move a queued request's
+    cache image (CPU tensors with a CRC) and slot state between engines,
+    for the fleet's prefill/decode roles, evacuation and crash recovery
+    (``repro_torch.cluster``).
 
 Under ``torch.profiler`` the prefill waves, the chunk calls and the decode
 dispatch of each step show as the ranges ``engine.prefill_wave``,
@@ -57,11 +61,11 @@ from ..core.scheduler import SchedulerConfig, make_econoserve
 from ..kernels.ref import POS_INVALID
 from ..models import model
 from ..models.config import ATTN, ModelConfig
+from ..obs import MetricsRegistry, publish_engine
 
 from .sampling import SamplingParams, sample_in_graph, sample_per_request
 
 MIN_SEQ_BUCKET = 16
-FLEET_ITEM = "ROADMAP queue 1: KV export/inject and the fleet"
 FAMILIES_ITEM = "ROADMAP queue 1: other model families"
 
 
@@ -280,6 +284,7 @@ class ServingEngine:
         self.n_kv_exports = 0
         self.n_kv_injects = 0
         self.n_kv_rejects = 0
+        self.n_export_reads = 0      # blocking device reads by export_kv
         self.n_aborted = 0
         self.n_shed = 0              # rung-4 terminal sheds (kvc-infeasible)
         self.n_prefill_waves = 0     # whole-prompt prefill dispatch waves
@@ -660,7 +665,7 @@ class ServingEngine:
         self.n_aborted += 1
 
     # ------------------------------------------------------------------ #
-    # KV migration: the fleet slice
+    # KV migration (cluster disaggregated prefill/decode roles)
     # ------------------------------------------------------------------ #
     @property
     def can_migrate_kv(self) -> bool:
@@ -668,14 +673,154 @@ class ServingEngine:
         stack this port runs has."""
         return self._pad_prefill
 
+    def _capture_kv(self, slot: int, ctx: int) -> dict:
+        """Copy one slot's first ``ctx`` cache positions to CPU tensors
+        (L, ctx, K, hd). On a CUDA cache the copy waits for the slot's
+        dispatched work; on a CPU cache ``copy=True`` keeps the image from
+        aliasing a row the slot's next tenant overwrites."""
+        return {kind: {n: sub[n][:, slot, :ctx].to("cpu", copy=True)
+                       for n in ("k", "v")}
+                for kind, sub in self.caches.items()}
+
     def export_kv(self, rid: int) -> dict:
-        raise NotImplementedError(f"export_kv ({FLEET_ITEM})")
+        """Extract a queued GT's KV pages and carried slot state so a peer
+        engine can continue decoding it, and remove the request from this
+        engine and its scheduler. The payload feeds ``inject_kv``;
+        ``payload["kv"]`` is the {kind: {"k", "v"}} image of the first
+        ``ctx`` cache positions as CPU tensors, or None when the request
+        lost its slot and no host-pool image of the right extent survives
+        (the receiver then recomputes, like a swap-preempted GT).
+
+        Must not be called while a megastep window is open: freeing the
+        request's KVC mid-window could admit a waiter the window never saw
+        (``submit``/``inject_kv`` defer for the same reason). On the async
+        path the slot's ``pos`` and ``last_tok`` are read from the device
+        in one blocking copy, which ``sync_counts`` do not count (as the
+        reference's ``device_get``); ``n_export_reads`` counts it."""
+        assert self._mega_left == 0, \
+            "export_kv during an open megastep window"
+        sched = self.scheduler
+        req = next(r for r in sched.gt_queue if r.rid == rid)
+        if self._pending_drain:
+            # the payload must carry every token generated so far (the
+            # receiver's recompute fallback rebuilds context from g.output)
+            self.sync_counts["flush"] += 1
+            self._drain_tokens(force=True)
+        g = self.requests.pop(rid)
+        slot = self.slot_of.pop(rid, None)
+        kv = crc = None
+        if slot is not None:
+            if self._async:
+                self.n_export_reads += 1
+                ctx, last = torch.stack([self._dev["pos"][slot],
+                                         self._dev["last_tok"][slot]]
+                                        ).tolist()
+            else:
+                ctx, last = int(self.pos[slot]), int(self.last_tok[slot])
+            if self.can_migrate_kv:
+                kv = self._capture_kv(slot, ctx)
+                crc = kv_checksum(kv)
+            self.free_slots.append(slot)
+        else:
+            ctx = req.prompt_len + req.generated - 1
+            last = g.output[req.generated - 1]
+            # a host-pool image survives the slot loss: ship it with its
+            # capture-time CRC (recomputing it here would vouch for a
+            # corrupted pool)
+            img = self._host_swap.pop(rid, None)
+            if (img is not None and self.can_migrate_kv
+                    and img["ctx"] == ctx):
+                kv, crc = img["kv"], img["crc"]
+        sched.gt_queue.remove(req)
+        sched.kvc.free(rid)
+        sched.kvc.swap_release(rid)
+        sched.swap_hold.pop(rid, None)
+        self._chunk_progress.pop(rid, None)
+        self._rec_state.pop(rid, None)
+        self._host_swap.pop(rid, None)
+        req.occupied_kvc = req.prompt_len + req.generated
+        self.n_kv_exports += 1
+        return {"gen": g, "req": req, "kv": kv, "ctx": ctx,
+                "last_tok": last, "kv_crc": crc}
 
     def inject_kv(self, payload: dict, now: float) -> Optional[int]:
-        raise NotImplementedError(f"inject_kv ({FLEET_ITEM})")
+        """Receive a migrated request. With a KV image (and a free slot and
+        KVC room) it becomes a queued GT whose decode continues from the
+        injected pages; otherwise it queues with its KV "in host memory"
+        and the swap-recompute path re-prefills prompt + generated on first
+        schedule. A duplicated delivery (its ``dkey`` already accepted) is
+        dropped here, before deferral; while a megastep window is open the
+        inject waits for the window to drain. Returns the assigned rid, or
+        None when deferred or dropped."""
+        dkey = payload.get("dkey")
+        if dkey is not None:
+            if dkey in self._delivered:
+                self.n_dup_deliveries += 1
+                return None
+            self._delivered.add(dkey)
+        if self._mega_left > 0:
+            self._pending_injects.append((payload, now))
+            return None
+        return self._apply_inject(payload, now)
 
     def _apply_inject(self, payload: dict, now: float) -> int:
-        raise NotImplementedError(f"inject_kv ({FLEET_ITEM})")
+        """Register a migrated request. A KV image is written straight into
+        cache positions [0, ctx) of a free slot: the reference pads it to
+        ``seq_bucket(ctx)`` only so that XLA compiles fewer programs, and an
+        eager write needs no pad."""
+        g: GenRequest = payload["gen"]
+        req: Request = payload["req"]
+        rid = self._rid
+        self._rid += 1
+        g.rid = rid
+        req.rid = rid
+        self.requests[rid] = g
+        sched = self.scheduler
+        tokens = req.prompt_len + req.generated
+        kv = payload["kv"]
+        ctx = payload["ctx"]
+        if kv is not None:
+            crc = payload.get("kv_crc")
+            if crc is not None and kv_checksum(kv) != crc:
+                # corrupted in transit: refuse the image and recompute from
+                # the host-side token stream, the ground truth
+                kv = None
+                self.n_kv_rejects += 1
+        if (kv is not None and self.can_migrate_kv and self.free_slots
+                and ctx <= self.capacity and sched.kvc.can_allocate(tokens)):
+            sched.kvc.allocate(rid, tokens)
+            sched.kvc.set_used(rid, tokens)
+            self._seat_image(g, kv, ctx, payload["last_tok"])
+        else:
+            # swap-recompute fallback: the request queues holding no KVC;
+            # scheduled, it arrives in plan.decode_reqs without a slot and
+            # the engine re-prefills prompt + generated
+            req.prompt_done = req.prompt_len
+        req.occupied_kvc = tokens
+        req.set_state(State.QUEUED_GT, now)
+        sched.enqueue_gt(req)
+        self.n_kv_injects += 1
+        return rid
+
+    def _seat_image(self, g: GenRequest, kv: dict, ctx: int,
+                    last: int) -> None:
+        """Give ``g`` a free slot seeded from a KV image of ``ctx``
+        positions, with ``last`` as its pending decode input (shared by the
+        host-swap restore and the migration inject)."""
+        slot = self.free_slots.pop()
+        self.slot_of[g.rid] = slot
+        self._inject_seed(kv, slot, ctx)
+        self.temps[slot] = g.params.temperature
+        self.top_ks[slot] = g.params.top_k
+        self.pos[slot] = ctx
+        if self._async:
+            eos = -1 if g.params.eos_token is None else g.params.eos_token
+            one = torch.tensor([last], dtype=torch.int32, device=self.device)
+            self._seed_slots(np.asarray([slot]), one, [last], [False],
+                             [ctx], [g.params.temperature],
+                             [g.params.top_k], [eos])
+        else:
+            self.last_tok[slot] = last
 
     # ------------------------------------------------------------------ #
     # host-offload KV swap tier (pressure ladder rung 2)
@@ -710,9 +855,7 @@ class ServingEngine:
             self._host_swap.pop(old, None)
         # the copy waits for the slot's dispatched work (a sync paid only
         # on the preemption path)
-        kv = {kind: {n: sub[n][:, slot, :ctx].to("cpu")
-                     for n in ("k", "v")}
-              for kind, sub in self.caches.items()}
+        kv = self._capture_kv(slot, ctx)
         self._host_swap[rid] = {"kv": kv, "ctx": ctx,
                                 "crc": kv_checksum(kv)}
         self.n_swap_captures += 1
@@ -739,23 +882,7 @@ class ServingEngine:
                 left.append(r)
                 continue
             g = self.requests[r.rid]
-            slot = self.free_slots.pop()
-            self.slot_of[r.rid] = slot
-            self._inject_seed(img["kv"], slot, ctx)
-            self.temps[slot] = g.params.temperature
-            self.top_ks[slot] = g.params.top_k
-            self.pos[slot] = ctx
-            last = g.output[r.generated - 1]
-            if self._async:
-                eos = -1 if g.params.eos_token is None \
-                    else g.params.eos_token
-                one = torch.tensor([last], dtype=torch.int32,
-                                   device=self.device)
-                self._seed_slots(np.asarray([slot]), one, [last], [False],
-                                 [ctx], [g.params.temperature],
-                                 [g.params.top_k], [eos])
-            else:
-                self.last_tok[slot] = last
+            self._seat_image(g, img["kv"], ctx, g.output[r.generated - 1])
             t_in = sched.cost.swap_in_time(ctx)
             sched.pending_extra_time += t_in
             r.swap_time += t_in
@@ -1312,19 +1439,16 @@ class ServingEngine:
                 self.n_aborted, self.n_kv_injects, self._rid)
 
     def publish_metrics(self, registry, instance: str = "0") -> None:
-        raise NotImplementedError(
-            f"the metrics plane (repro.obs) is not ported yet ({FLEET_ITEM})")
+        """Publish every engine/scheduler/KVC counter and gauge into a
+        ``repro_torch.obs`` registry (host values only)."""
+        publish_engine(self, registry, instance)
 
     def debug_state(self) -> Dict[str, object]:
-        """Queue/KVC snapshot for stall diagnostics."""
-        s = self.scheduler
-        return {"pt_queue": len(s.pt_queue), "gt_queue": len(s.gt_queue),
-                "completed": len(s.completed),
-                "kvc_allocated_frac": s.kvc.allocated_frac,
-                "free_slots": len(self.free_slots),
-                "pending_drain": len(self._pending_drain),
-                "mega_left": self._mega_left,
-                "decode_iters": self.decode_iters}
+        """Queue/KVC snapshot for stall diagnostics, read back from a
+        registry snapshot: the publication path live metrics use."""
+        reg = MetricsRegistry()
+        self.publish_metrics(reg)
+        return reg.snapshot().flat()
 
     def run(self, gen_requests: Sequence[GenRequest],
             arrivals: Optional[Sequence[float]] = None,

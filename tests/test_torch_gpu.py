@@ -178,3 +178,77 @@ def test_flash_tile_edges(card, dtype):
     got = flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos)
     _close(got, ref.flash_attention(q, k, v, q_positions=qpos,
                                     kv_positions=kpos), dtype)
+
+
+# --------------------------------------------------------------------- #
+# KV migration and the fleet on the card
+# --------------------------------------------------------------------- #
+def _small_bf16():
+    from repro_torch.configs import get_config
+    return get_config("qwen3_8b").reduced()
+
+
+def _requests(cfg, n, seed=0, lo=24, hi=160):
+    import numpy as np
+    from repro_torch.serving import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    return [GenRequest(
+        prompt=[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(lo, hi)))],
+        params=SamplingParams(max_new_tokens=int(rng.integers(6, 20))))
+        for _ in range(n)]
+
+
+def test_export_inject_roundtrip_is_bitwise_in_bf16(card):
+    """The KV image is a byte copy: the target's cache row equals the
+    source's, the CRC holds, and the target finishes the request."""
+    from repro_torch.models.config import ATTN
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import kv_checksum
+    cfg = _small_bf16()
+    src = ServingEngine(cfg, max_batch=4, capacity=256, rl_accuracy=1.0)
+    dst = ServingEngine(cfg, src.params, max_batch=4, capacity=256,
+                        rl_accuracy=1.0, seed=1)
+    g = _requests(cfg, 1)[0]
+    t = 0.0
+    src.submit(g, t)
+    while not src.scheduler.gt_queue:
+        t += 1.0
+        src.step(t)
+    slot = src.slot_of[g.rid]
+    ctx = int(src._dev["pos"][slot])
+    row = {n: src.caches[ATTN][n][:, slot, :ctx].clone() for n in ("k", "v")}
+    payload = src.export_kv(g.rid)
+    assert payload["ctx"] == ctx and src.n_export_reads == 1
+    assert kv_checksum(payload["kv"]) == payload["kv_crc"]
+    rid = dst.inject_kv(payload, t)
+    for n in ("k", "v"):
+        assert torch.equal(dst.caches[ATTN][n][:, dst.slot_of[rid], :ctx],
+                           row[n])
+    while dst.has_work() and t < 400:
+        t += 1.0
+        dst.step(t)
+    dst.flush()
+    assert g.status == "completed"
+    assert len(g.output) == g.params.max_new_tokens
+
+
+@pytest.mark.parametrize("roles", [None, ("prefill", "decode")],
+                         ids=["unified", "disagg"])
+def test_fleet_of_two_on_the_card(card, roles):
+    from repro_torch.cluster import EngineFleet, check_fleet_invariants
+    cfg = _small_bf16()
+    fleet = EngineFleet(cfg, n_instances=2, roles=roles, seed=0,
+                        max_batch=4, capacity=256, rl_accuracy=1.0)
+    assert fleet.device.type == "cuda"
+    paged_decode_attention.launches = 0
+    reqs = fleet.run(_requests(cfg, 8))
+    assert all(len(g.output) == g.params.max_new_tokens for g in reqs)
+    assert fleet.conservation()["ok"]
+    assert check_fleet_invariants(fleet)["ok"]
+    iters = sum(i.engine.decode_iters for i in fleet.instances)
+    assert paged_decode_attention.launches == cfg.num_layers * iters
+    if roles is None:
+        assert all(i.engine.scheduler.completed for i in fleet.instances)
+    else:
+        assert fleet.n_migrations == 8 and fleet.n_kv_fallbacks == 0
