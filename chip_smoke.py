@@ -1,5 +1,6 @@
 """Card smoke test of the PyTorch port: build, check and time the CUDA
-kernels, then serve qwen3-8b at full width through ``ServingEngine``.
+kernels, then serve qwen3-8b and zamba2-7b at full width through
+``ServingEngine``.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -12,12 +13,15 @@ Phases (any failure raises and exits non-zero):
      (TF32 off, tol 1e-4) and bfloat16 (one bf16 ulp, see ``TOL``), at the
      test sweeps, at tile and split edges (segments across tile edges,
      chunks over mostly invalid slots, rows that see no key, contexts at
-     split boundaries +-1 and 0) and at the serving path's shapes (packed
-     prefill, a chunk over a cache row, a packed chunk wave, decode); at
-     those four, time kernel, plain version and one library call (SDPA,
-     bool mask, ``enable_gqa``) with CUDA events, each rotating over copies
-     of its inputs so that every call finds them cold in L2, and compute
-     each kernel's bound from the call's inputs;
+     split boundaries +-1 and 0), at hd 96, 112 and 160 with G = 1 and
+     G = 4 (flash causal and over a prefix; decode at ctx 0, 1, page and
+     split edges +-1, full), and at the serving paths' shapes (qwen3:
+     packed prefill, a chunk over a cache row, a packed chunk wave, decode
+     at hd 128; zamba2: causal prefill (1, 1536, 32, 112), decode
+     (8, 2048, 32, 112)); at those six, time kernel, plain version and one
+     library call (SDPA, bool mask, ``enable_gqa``) with CUDA events, each
+     rotating over copies of its inputs so that every call finds them cold
+     in L2, and compute each kernel's bound from the call's inputs;
   4. the main path: qwen3-8b at its published widths and depth (36 layers,
      bf16, seeded random weights), max_batch 8, capacity 2048, default
      EngineConfig, 12 requests; checks lengths, launch counters, chunk waves
@@ -45,9 +49,24 @@ Phases (any failure raises and exits non-zero):
         (run right after phase 5, whose weights it takes and frees).
      Each path counts kernel launches from zero; 6b and 6c print tokens/s
      of the unsynchronised run and peak memory beside the card's name and
-     power limit.
+     power limit;
+  7. the recurrent and hybrid families:
+     a. zamba2-7b at its published widths and depth (81 Mamba2 layers, the
+        shared MHA block at hd 112 13 times), bf16, seeded random
+        weights, max_batch 8, capacity 2048, default EngineConfig, on
+        phase 4's workload (exact-shape prefill, recomputed chunks):
+        every request complete, flash launches a multiple of 13, decode
+        13 x the decode iterations; tokens/s of the unsynchronised run,
+        then the profiled run as phase 4's;
+     b. greedy parity as phase 5's, zamba2-7b at full width cut to 12
+        layers (2 shared invocations), float32;
+     c. xlstm-125m at its published size, float32: prompts chunked under a
+        128-token budget carry their recurrent state from chunk to chunk,
+        and the streams equal those of the recompute path.
 The line before the last is the kernels' JSON record (launches summed over
-phases 4 and 6); the last line is ``{"ok": true, "device": {...}}``.
+phases 4, 6 and 7a; the top-level times are the zamba2 shapes, every
+timed shape under ``shapes``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -64,6 +83,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+HEAD_DIMS_NEW = (96, 112, 160)       # beyond 32/64/128: every config's hd
 PEAK_BYTES = 3.35e12
 # (atol, rtol). The kernels and their plain versions both accumulate in
 # float32 (TF32 off); in bfloat16 each rounds its float32 result once, so
@@ -245,27 +265,51 @@ def _flash_cases(torch, dtype, gen):
            rnd(1, 150, 8, 64), rnd(1, 200, 2, 64), rnd(1, 200, 2, 64),
            dict(q_positions=qpos, kv_positions=kpos))
 
+    # the head dims past 32/64/128 (phi3-vision 96, zamba2-7b 112,
+    # stablelm-12b 160) in causal mode, zamba2's exact prefill, with G = 1
+    # (MHA) and G = 4, on a tile edge and across three (S = 64, 193); and a
+    # chunk over a prefix at each
+    for hd in HEAD_DIMS_NEW:
+        for H, K in ((4, 4), (8, 2)):
+            for S in (64, 193):
+                yield (f"causal hd{hd} H{H} K{K} S{S}", rnd(1, S, H, hd),
+                       rnd(1, S, K, hd), rnd(1, S, K, hd), {})
+        C, S, plen = 128, 70, 65
+        slot = torch.arange(C, device=dev)
+        kpos = torch.cat([torch.where(slot < plen, slot, POS_INVALID),
+                          plen + torch.arange(S, device=dev)])[None].int()
+        qpos = (plen + torch.arange(S, device=dev))[None].int()
+        yield (f"positions hd{hd} G1 C{C} S{S} plen{plen}",
+               rnd(1, S, 4, hd), rnd(1, C + S, 4, hd), rnd(1, C + S, 4, hd),
+               dict(q_positions=qpos, kv_positions=kpos))
+
 
 def _decode_edge_cases(torch, dtype, gen):
     """Yield (label, q, k_pages, v_pages, block_tables, context_lens) at
-    contexts on the split boundaries +-1, ctx 0, and a row ending in the
-    first split beside a full one."""
+    contexts on the split boundaries +-1, ctx 0, page edges +-1, and a row
+    ending in the first split beside a full one: at hd 128 (G = 4), and at
+    each new head dim with G = 1 and G = 4."""
     from repro_torch.kernels.paged_attention import _sm_count, plan_splits
-    B, H, K, hd, page, MP = 4, 16, 4, 128, 16, 64
+    page, MP = 16, 64
     cap = page * MP
-    split, n = plan_splits(B, K, cap, _sm_count(0))
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    P = B * MP + 2
-    q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
-    bt = torch.randperm(P, device="cuda", generator=gen)[:B * MP].reshape(
-        B, MP).int()
-    for ctx in ([0, split - 1, split, split + 1], [1, cap, 3, cap - 1],
-                [2 * split + 1, 2 * split - 1, split * (n - 1), 0]):
-        cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-        yield (f"split {split} x {n}, ctx {ctx}", q, kp, vp, bt, cl)
+    for hd, H, K in [(128, 16, 4)] + [(hd, H, K) for hd in HEAD_DIMS_NEW
+                                      for H, K in ((4, 4), (16, 4))]:
+        B = 4
+        split, n = plan_splits(B, K, cap, _sm_count(0))
+        P = B * MP + 2
+        q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
+        bt = torch.randperm(P, device="cuda", generator=gen)[
+            :B * MP].reshape(B, MP).int()
+        for ctx in ([0, split - 1, split, split + 1], [1, cap, 3, cap - 1],
+                    [2 * split + 1, 2 * split - 1, split * (n - 1), 0],
+                    [page - 1, page, page + 1, 2 * page + 1]):
+            cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+            yield (f"hd{hd} G{H // K} split {split} x {n}, ctx {ctx}", q, kp,
+                   vp, bt, cl)
 
 
 
@@ -379,6 +423,11 @@ def phase_kernels(torch, seed: int) -> dict:
                       torch.randn(1, T, K, hd, generator=gen, device="cuda"),
                       dict(segment_ids=seg)))]
     flash_shapes += list(_main_chunk_cases(torch, gen))
+    # zamba2-7b's exact prefill: one prompt, causal, MHA at hd 112
+    zq = [torch.randn(1, 1536, 32, 112, generator=gen, device="cuda")
+          for _ in range(3)]
+    flash_shapes.insert(0, ("zamba2 exact prefill (1,1536,32,112) causal",
+                            (*zq, {})))
     flash_recs = []
     for label, (q, k, v, kw) in flash_shapes:
         for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
@@ -387,6 +436,7 @@ def phase_kernels(torch, seed: int) -> dict:
                    flash_attention(qq, kk, vv, **kw),
                    ref.flash_attention(qq, kk, vv, **kw), dn, flash_errs)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        Hq, hdq = q.shape[2], q.shape[3]
         mask = _flash_mask(torch, q.shape[1], k.shape[1], kw)
         pairs = int(mask.sum())
         ints = sum(t.numel() for t in kw.values()
@@ -398,16 +448,36 @@ def phase_kernels(torch, seed: int) -> dict:
             lambda q, k, v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask[:, None], enable_gqa=True),
-            flops=4.0 * pairs * H * hd,
+            flops=4.0 * pairs * Hq * hdq,
             nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * ints)
         flash_recs.append(dict(rec, shape=label, max_abs_err=flash_errs[-1]))
 
     B, C = 8, 2048
+    ctx = torch.randint(1, C + 1, (B,), generator=cpu_gen).int().cuda()
+    ctx[0], ctx[1] = 1, C
+    paged_recs = [_decode_serving(torch, gen, ctx, H, K, hd, paged_errs)
+                  for H, K, hd in ((32, 8, 128), (32, 32, 112))]
+    return {
+        "flash_prefill": dict(flash_recs[0], max_abs_err_all=max(flash_errs),
+                              shapes=flash_recs),
+        "paged_decode": dict(paged_recs[-1], max_abs_err_all=max(paged_errs),
+                             shapes=paged_recs),
+    }
+
+
+def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
+                    paged_errs: list) -> dict:
+    """A serving decode shape (B = 8 rows of C = 2048 slots, contexts
+    ``ctx``): check it in f32 and bf16 through the contiguous rows and a
+    block table, then time kernel, plain version and SDPA in bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    dt = torch.bfloat16
+    B, C = ctx.shape[0], 2048
     ck = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
     cv = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
     qd = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
-    ctx = torch.randint(1, C + 1, (B,), generator=cpu_gen).int().cuda()
-    ctx[0], ctx[1] = 1, C
     ps = ops.page_size(C)
     mp = C // ps
     bt = (torch.arange(B)[:, None] * mp + torch.arange(mp)[None]).int().cuda()
@@ -416,19 +486,20 @@ def phase_kernels(torch, seed: int) -> dict:
         want = ref.paged_decode_attention(
             a, b_.reshape(B * mp, ps, K, hd), c_.reshape(B * mp, ps, K, hd),
             bt, ctx)
-        _check(torch, f"decode_attention ({B},{C},{K},{hd}) "
+        _check(torch, f"decode_attention ({B},{C},{K},{hd}) H{H} "
                       f"ctx {ctx.tolist()}",
                ops.decode_attention(a, b_, c_, ctx), want, dn, paged_errs)
-        _check(torch, f"paged ({B},{C},{K},{hd}) through its block table",
+        _check(torch, f"paged ({B},{C},{K},{hd}) H{H} through its block "
+                      f"table",
                paged_decode_attention(a, b_.reshape(B * mp, ps, K, hd),
                                       c_.reshape(B * mp, ps, K, hd), bt, ctx),
                want, dn, paged_errs)
-    paged_err_main = paged_errs[-2]
+    err = paged_errs[-2]
     dmask = (torch.arange(C, device="cuda")[None] < ctx[:, None].long())
     toks = int(ctx.sum())
-    pg = _measure(
-        torch, f"paged_decode ({B},{C},{K},{hd}) ctx {ctx.tolist()}",
-        (qd, ck, cv),
+    label = f"({B},{C},{K},{hd}) H{H} ctx {ctx.tolist()}"
+    rec = _measure(
+        torch, f"paged_decode {label}", (qd, ck, cv),
         lambda q, k, v: ops.decode_attention(q, k, v, ctx),
         lambda q, k, v: ref.paged_decode_attention(
             q, k.view(B * mp, ps, K, hd), v.view(B * mp, ps, K, hd), bt, ctx),
@@ -438,12 +509,7 @@ def phase_kernels(torch, seed: int) -> dict:
         flops=4.0 * toks * H * hd,
         nbytes=2.0 * (2 * toks * K * hd + 2 * qd.numel()) + 4.0 * B,
         iters=50)
-    return {
-        "flash_prefill": dict(flash_recs[0], max_abs_err_all=max(flash_errs),
-                              shapes=flash_recs),
-        "paged_decode": dict(pg, max_abs_err=paged_err_main,
-                             max_abs_err_all=max(paged_errs)),
-    }
+    return dict(rec, shape=label, max_abs_err=err)
 
 
 def _flash_mask(torch, Sq: int, Sk: int, kw: dict):
@@ -602,7 +668,7 @@ def phase_main_path(torch, seed: int) -> dict:
     log(f"[4 main] {json.dumps(res)}")
     params = eng.params
     del eng
-    res["profile"] = phase_profile(torch, cfg, params, seed, wall)
+    res["profile"] = phase_profile(torch, cfg, params, seed, wall, "4", L)
     return res, params
 
 
@@ -668,21 +734,27 @@ def read_profile(prof) -> dict:
                                     if "paged_decode_combine" in k)}
 
 
-def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
-    """Where the time goes: the phase-4 workload again, on a fresh engine
+def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
+                  n_attn: int) -> dict:
+    """Where the time goes: the phase's workload again, on a fresh engine
     with the same weights and seed, under ``torch.profiler``, read in one
     pass by ``read_profile``. A phase's device time is that of the aten
     kernels inside its ranges plus its attention kernels (flash: prefill
-    waves and chunk calls; paged decode: decode). The idle share is
-    1 - (device kernel time / wall time of the unprofiled run of the same
-    workload)."""
+    waves and chunk calls; paged decode: decode). A prefill call is one
+    forward pass of the stack, which launches flash once in each of its
+    ``n_attn`` attention layers (a packed wave or a chunk call of qwen3;
+    one exact-shape prompt or recomputed chunk of zamba2). The idle share
+    is 1 - (device kernel time / wall time of the unprofiled run of the
+    same workload)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_prefill import flash_attention
     from repro_torch.serving import ServingEngine
 
     eng = ServingEngine(cfg, params, max_batch=8, capacity=2048, seed=seed,
                         device="cuda")
     reqs = _workload(cfg, seed)
     torch.cuda.synchronize()
+    flash0 = flash_attention.launches
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -692,14 +764,14 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
     t1 = time.monotonic()
     rp = read_profile(prof)
     del prof
-    log(f"[4 profile] profiled run {wall_prof:.1f}s, reading the profile "
-        f"{time.monotonic() - t1:.1f}s")
+    log(f"[{tag} profile] profiled run {wall_prof:.1f}s, reading the "
+        f"profile {time.monotonic() - t1:.1f}s")
     groups, span_us = rp["groups"], rp["span_us"]
     busy_us = sum(groups.values())
     if busy_us <= 0.0:
-        log("[4 profile] the profiler recorded no device time: device busy "
-            "and idle share not measured")
-    n_pf = eng.n_prefill_waves + eng.n_chunk_calls
+        log(f"[{tag} profile] the profiler recorded no device time: device "
+            f"busy and idle share not measured")
+    n_pf = (flash_attention.launches - flash0) // n_attn
     pf_us = (span_us["engine.prefill_wave"] + span_us["engine.prefill_chunks"]
              + groups["flash_prefill"])
     dec_us = span_us["engine.decode"] + groups["paged_decode"]
@@ -727,19 +799,23 @@ def phase_profile(torch, cfg, params, seed: int, wall: float) -> dict:
            if busy_us else None,
            "span_aten_device_ms": {k: v / 1e3 for k, v in span_us.items()},
            "span_aten_launches": rp["span_launches"],
+           "prefill_calls": n_pf,
            "prefill_waves": eng.n_prefill_waves,
            "chunk_calls": eng.n_chunk_calls,
            "decode_iters": iters}
-    log(f"[4 profile] {json.dumps(res)}")
+    log(f"[{tag} profile] {json.dumps(res)}")
     for us, n, key in rp["top"]:
-        log(f"[4 profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
+        log(f"[{tag} profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
     return res
 
 
 # --------------------------------------------------------------------------- #
 # phase 5: greedy parity at full width, 4 layers, float32
 # --------------------------------------------------------------------------- #
-def phase_parity(torch, seed: int):
+def phase_parity(torch, seed: int, cfg=None, tag: str = "5"):
+    """Greedy streams of the engine equal to an isolated prefill +
+    decode_step loop of each request, float32, TF32 off: qwen3-8b at full
+    width cut to 4 layers (phase 5), or ``cfg`` (phase 7b)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model
@@ -747,10 +823,11 @@ def phase_parity(torch, seed: int):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen3_8b").with_(num_layers=4, dtype="float32",
-                                       param_dtype="float32")
-    log("[5 parity] qwen3-8b full width cut to 4 layers (the only depth "
-        "cut), float32, TF32 off")
+    if cfg is None:
+        cfg = get_config("qwen3_8b").with_(num_layers=4, dtype="float32",
+                                           param_dtype="float32")
+    log(f"[{tag} parity] {cfg.name} full width, {cfg.num_layers} layers "
+        f"(the only depth cut), float32, TF32 off")
     eng = ServingEngine(cfg, max_batch=4, capacity=512, seed=seed,
                         device="cuda")
     rng = np.random.default_rng(seed + 7)
@@ -763,10 +840,11 @@ def phase_parity(torch, seed: int):
         want = _isolated_greedy(torch, model, cfg, eng.params, g.prompt,
                                 g.params.max_new_tokens, capacity=512)
         if g.output != want:
-            raise AssertionError(f"greedy parity: request {g.rid} engine "
-                                 f"{g.output} != isolated {want}")
-    log(f"[5 parity] {len(reqs)} greedy streams equal to isolated "
-        f"prefill + decode_step")
+            raise AssertionError(f"[{tag}] greedy parity: request {g.rid} "
+                                 f"engine {g.output} != isolated {want}")
+    log(f"[{tag} parity] {len(reqs)} greedy streams equal to isolated "
+        f"prefill + decode_step ({eng.n_prefill_chunks} chunk grants, "
+        f"{eng.decode_iters} decode iterations)")
     return cfg, eng.params
 
 
@@ -1024,6 +1102,153 @@ def phase_fleet(torch, smi: str, params, chaos: dict, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 7: the recurrent and hybrid families
+# --------------------------------------------------------------------------- #
+def phase_zamba(torch, smi: str, seed: int) -> dict:
+    """7a: zamba2-7b at its published widths and depth (81 Mamba2 layers,
+    d 3584, the shared MHA block at hd 112 after every 6th layer, 13
+    times), bf16, seeded random weights, max_batch 8, capacity 2048,
+    default EngineConfig, on phase 4's workload: one unsynchronised timed
+    run, then one under ``torch.profiler``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+
+    cfg = get_config("zamba2_7b")
+    n_inv = model.num_shared_invocations(cfg)
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, max_batch=8, capacity=2048, seed=seed,
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in eng.params.values())
+    log(f"[7a zamba2] {cfg.num_layers} Mamba2 layers, d {cfg.d_model}, "
+        f"{n_inv} shared-attention invocations (hd "
+        f"{cfg.resolved_head_dim}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads), {n_params / 1e9:.3f}B params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), init "
+        f"{time.monotonic() - t0:.1f}s")
+    warm = ServingEngine(cfg, eng.params, max_batch=8, capacity=2048,
+                         seed=seed, device="cuda")
+    warm.run([GenRequest(prompt=list(range(1, 65)),
+                         params=SamplingParams(max_new_tokens=4))])
+    del warm
+    reqs = _workload(cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.monotonic()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _read_launches("7a", n_inv, eng.decode_iters)
+    for g in reqs:
+        if g.status != "completed" or \
+                len(g.output) != g.params.max_new_tokens:
+            raise AssertionError(f"[7a] request {g.rid} incomplete: "
+                                 f"{g.status} {len(g.output)}/"
+                                 f"{g.params.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in g.output):
+            raise AssertionError(f"[7a] request {g.rid}: token out of vocab")
+    if eng.n_blocking_syncs:
+        raise AssertionError(f"[7a] blocking syncs: {eng.sync_counts}")
+    toks = sum(len(g.output) for g in reqs)
+    res = {"card": smi, "wall_s": wall, "tokens": toks,
+           "tok_per_s": toks / wall, "decode_iters": eng.decode_iters,
+           "decode_dispatches": eng.n_decode_dispatches,
+           "mega_windows": eng.n_mega_windows,
+           "prefill_waves": eng.n_prefill_waves,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "chunk_calls": eng.n_chunk_calls,
+           "prefill_shapes": len(eng._prefill_shapes),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sync_counts": dict(eng.sync_counts), "launches": launches}
+    log(f"[7a zamba2] {json.dumps(res)}")
+    params = eng.params
+    del eng
+    res["profile"] = phase_profile(torch, cfg, params, seed, wall, "7a",
+                                   n_inv)
+    p = res["profile"]
+    log(f"[7a zamba2] {smi}: {res['tok_per_s']:.2f} tokens/s, device busy "
+        f"{p['device_busy_s']} s, idle share {p['idle_share']}, decode "
+        f"device ms/iter {p['decode_device_ms_per_iter']}, prefill device "
+        f"ms/call {p['prefill_device_ms_per_call']}, launches {launches}, "
+        f"peak {res['peak_mem_gb']:.2f} GB")
+    return res
+
+
+def phase_zamba_parity(torch, seed: int) -> dict:
+    """7b: zamba2-7b at full width cut to 12 layers (2 shared
+    invocations), float32, TF32 off, through ``phase_parity``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import MAMBA
+    cfg = get_config("zamba2_7b").with_(
+        num_layers=12, layer_pattern=MAMBA * 12, dtype="float32",
+        param_dtype="float32")
+    t0 = time.monotonic()
+    _zero_launches()
+    _, params = phase_parity(torch, seed, cfg, "7b")
+    del params
+    launches = _read_launches("7b", 2)
+    return {"seconds": time.monotonic() - t0, "launches": launches}
+
+
+def phase_xlstm(torch, seed: int) -> dict:
+    """7c: xlstm-125m at its published size, float32: prompts of 200-700
+    tokens under a 128-token prefill budget go through several state-carry
+    chunks; the streams equal those of the same requests with
+    ``incremental_chunk_prefill=False`` (every chunk recomputes its
+    prefix)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving import (EngineConfig, GenRequest,
+                                     SamplingParams, ServingEngine)
+    cfg = get_config("xlstm_125m").with_(dtype="float32",
+                                         param_dtype="float32")
+
+    def run(params, ecfg):
+        eng = ServingEngine(
+            cfg, params, max_batch=4, capacity=1024, seed=seed,
+            device="cuda", engine_cfg=ecfg,
+            scheduler_cfg=SchedulerConfig(
+                kvc_tokens=4 * 1024, block_size=32, tfs=128,
+                max_model_len=1024, max_batch_reqs=4))
+        rng = np.random.default_rng(seed + 13)
+        reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(200, 701)))],
+            params=SamplingParams(max_new_tokens=int(rng.integers(8, 25))))
+            for _ in range(6)]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng, reqs
+
+    t0 = time.monotonic()
+    carry, reqs_c = run(None, None)
+    t1 = time.monotonic()
+    rec, reqs_r = run(carry.params,
+                      EngineConfig(incremental_chunk_prefill=False))
+    t2 = time.monotonic()
+    if not carry._chunk_rec or rec._chunk_rec:
+        raise AssertionError("[7c] the two runs did not take the state-carry "
+                             "and the recompute paths")
+    for a, b in zip(reqs_c, reqs_r):
+        if a.status != "completed" or a.output != b.output:
+            raise AssertionError(f"[7c] request {a.rid}: state carry "
+                                 f"{a.output} != recompute {b.output}")
+    if carry.n_prefill_chunks != rec.n_prefill_chunks \
+            or carry.n_prefill_chunks <= 2 * len(reqs_c):
+        raise AssertionError(f"[7c] chunks: carry {carry.n_prefill_chunks}, "
+                             f"recompute {rec.n_prefill_chunks}")
+    res = {"requests": len(reqs_c),
+           "prompt_tokens": sum(len(g.prompt) for g in reqs_c),
+           "chunks": carry.n_prefill_chunks,
+           "carry_s": t1 - t0, "recompute_s": t2 - t1}
+    log(f"[7c xlstm] state-carry streams equal to recompute streams: "
+        f"{json.dumps(res)}")
+    return res
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1052,8 +1277,16 @@ def main(argv=None) -> int:
     chaos = phase_chaos(torch, *phase_parity(torch, args.seed), args.seed)
     fleet = phase_fleet(torch, smi, params, chaos, args.seed)
     del params
+    torch.cuda.empty_cache()
+    zamba = phase_zamba(torch, smi, args.seed)
+    torch.cuda.empty_cache()
+    zamba["parity"] = phase_zamba_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    phase_xlstm(torch, args.seed)
     launches = {k: main["launches"][k] + fleet["launches"][k]
-                for k in main["launches"]}
+                + zamba["launches"][k] for k in main["launches"]}
+    log(f"[7] launches: phase 4 {main['launches']}, phase 6 "
+        f"{fleet['launches']}, phase 7a {zamba['launches']}")
     record = {"kernels": [
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -1071,10 +1304,14 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/paged_attention.py:122",
          "launches": launches["paged_decode"],
          "combine_launches": main["paged_decode_combine_launches"]
-         + fleet["combine_launches"],
+         + fleet["combine_launches"] + zamba["launches"]["combine"],
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "share_of_bound")}},
+             "library_ms", "share_of_bound")},
+         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "share_of_bound", "max_abs_err")}
+                    for r in kern["paged_decode"]["shapes"]]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -745,7 +745,13 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                                   Sq, Sk, H, K, causal, window, softcap, s);
     case 64: return launch<T, 64>(q, k, v, o, seg_q, seg_k, pos_q, pos_k, tiles, B,
                                   Sq, Sk, H, K, causal, window, softcap, s);
+    case 96: return launch<T, 96>(q, k, v, o, seg_q, seg_k, pos_q, pos_k, tiles, B,
+                                  Sq, Sk, H, K, causal, window, softcap, s);
+    case 112: return launch<T, 112>(q, k, v, o, seg_q, seg_k, pos_q, pos_k, tiles, B,
+                                    Sq, Sk, H, K, causal, window, softcap, s);
     case 128: return launch<T, 128>(q, k, v, o, seg_q, seg_k, pos_q, pos_k, tiles, B,
+                                    Sq, Sk, H, K, causal, window, softcap, s);
+    case 160: return launch<T, 160>(q, k, v, o, seg_q, seg_k, pos_q, pos_k, tiles, B,
                                     Sq, Sk, H, K, causal, window, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -134,10 +134,15 @@ struct Cfg {
   static constexpr int CPR = HD / EPC;              // chunks a row
   static constexpr int NG = NTHREADS / TK;          // head groups in the scores
   static constexpr int GPT = MAXG / NG;             // heads a thread, at most
-  static constexpr int CPW = HD / 2;                // column pairs in P.V
+  static constexpr int NCP = HD / 2;                // column pairs in P.V
+  // P.V threads a key group: NCP rounded up to a power of two that divides
+  // NTHREADS (hd 96 and 112 give 64, hd 160 gives 128); threads at or past
+  // NCP hold no column and sit the P.V loop out
+  static constexpr int CPW = NCP <= 16 ? 16 : NCP <= 32 ? 32 : NCP <= 64 ? 64 : 128;
   static constexpr int NKG = NTHREADS / CPW;        // key groups in P.V
   static constexpr size_t KV_BYTES = sizeof(T) * 2 * TK * (KROW + HD);
-  static_assert(NTHREADS % TK == 0 && NTHREADS % CPW == 0, "tile shape");
+  static_assert(NTHREADS % TK == 0 && NCP <= CPW && CPW <= NTHREADS
+                && HD % EPC == 0, "tile shape");
   // the P.V group reduction aliases the K/V buffers after the loop
   static_assert(sizeof(float) * NKG * MAXG * HD <= KV_BYTES, "alias");
 };
@@ -314,7 +319,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         acc[g][1] *= alpha_s[g];
       }
     }
-    for (int j = kg; j < TK; j += C::NKG) {
+    for (int j = kg; cp < C::NCP && j < TK; j += C::NKG) {
       const float2 vv = load_pair(Vs + (buf * TK + j) * HD + 2 * cp);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
@@ -332,7 +337,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* red = reinterpret_cast<float*>(smem_raw);   // [NKG][G][HD]
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
+    if (g < G && cp < C::NCP) {
       red[(kg * G + g) * HD + 2 * cp] = acc[g][0];
       red[(kg * G + g) * HD + 2 * cp + 1] = acc[g][1];
     }
@@ -687,7 +692,10 @@ int dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
   switch (hd) {
     case 32: return launch<T, 32>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
     case 64: return launch<T, 64>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
+    case 96: return launch<T, 96>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
+    case 112: return launch<T, 112>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
     case 128: return launch<T, 128>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
+    case 160: return launch<T, 160>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,7 +14,7 @@ import torch
 from . import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
 TILE = 64               # q rows and keys a tile of the kernel
 
 

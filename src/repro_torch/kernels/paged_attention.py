@@ -17,7 +17,7 @@ import torch
 from . import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
 MAX_GROUP = 16          # query heads per kv head the kernel holds
 SPLIT_ALIGN = 64        # split lengths are multiples of this
 CTAS_PER_SM = 4         # split-KV aims at this many CTAs per SM

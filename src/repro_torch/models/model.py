@@ -1,66 +1,134 @@
-"""Model assembly for pure-attention (``ATTN``) decoder stacks: parameters,
-caches, prefill, decode and logits, mirroring ``repro.models.model``.
+"""Model assembly for pattern-driven block stacks, mirroring
+``repro.models.model``: attention (``A``), Mamba2 (``M``), mLSTM (``X``)
+and sLSTM (``S``) blocks in any order, and a Zamba2-style shared attention
+block applied after every ``shared_attention_every`` layers (one set of
+weights for every invocation). Parameters, caches, prefill, decode and
+logits.
 
-Parameters live in a flat dict ``{name: tensor}`` with every per-layer
-weight stacked along a leading layer axis (L, ...); the forward passes are a
-Python loop over layers where the reference scans, each layer's weights a
-view into the stacked tensor. Caches are ``{"A": {"k", "v"}}`` with leaves
-(L, B, C, K, hd), as the reference's ``init_cache``.
+Parameters live in a flat dict ``{name: tensor}``. The weights of the
+layers of one kind are stacked along a leading axis (n, ...), n the layers
+of that kind; the shared block is not stacked. Attention names carry no
+prefix (``wq``, ``attn_norm``, ...), the other kinds theirs (``mamba.``,
+``mlstm.``, ``slstm.``, ``shared.``). The forward passes are a Python loop
+over the pattern where the reference scans segments, each layer's weights
+a view into the stacked tensor. Caches are ``{kind: {leaf: tensor}}`` with
+leaves (n, B, ...) as the reference's ``init_cache``: K/V (n, B, C, K, hd)
+for ``A`` and ``"shared"``, the recurrent states for the other kinds.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import attention, mlp
+from . import attention, mlp, ssm, xlstm
 from .common import ParamMeta, ParamTree, init_params, rms_norm
-from .config import ATTN, ModelConfig
+from .config import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+NEXT_ITEM = ("ROADMAP queue 1: MoE, embedding frontends and sliding-window "
+             "ring caches")
 
-# per-layer parameter names of an ATTN block: attention weights come from
-# ``attention.attn_params``, MLP weights from ``mlp.mlp_params``
+# per-layer parameter names of an ATTN block (and of the shared block):
+# attention weights from ``attention.attn_params``, MLP weights from
+# ``mlp.mlp_params``
 ATTN_NORM, MLP_NORM = "attn_norm", "mlp_norm"
+PREFIX = {ATTN: "", MAMBA: "mamba.", MLSTM: "mlstm.", SLSTM: "slstm."}
+SHARED = "shared"
+KV_KINDS = (ATTN, SHARED)
+RECURRENT_PREFILL = {MAMBA: ssm.ssm_prefill, MLSTM: xlstm.mlstm_prefill,
+                     SLSTM: xlstm.slstm_prefill}
+RECURRENT_DECODE = {MAMBA: ssm.ssm_decode, MLSTM: xlstm.mlstm_decode,
+                    SLSTM: xlstm.slstm_decode}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice runs dense pure-attention stacks only."""
-    kinds = set(cfg.pattern())
-    if kinds != {ATTN}:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} (Mamba2/xLSTM) are not "
-            f"ported yet (ROADMAP queue 1: other model families)")
-    if cfg.shared_attention_every:
-        raise NotImplementedError(
-            f"{cfg.name}: shared attention is not ported yet (ROADMAP "
-            f"queue 1: other model families)")
+    """Every stack but MoE runs in this slice."""
     if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported yet (ROADMAP queue 1: other "
-            f"model families)")
+            f"{cfg.name}: MoE is not ported yet ({NEXT_ITEM})")
 
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def kind_counts(cfg: ModelConfig) -> Dict[str, int]:
+    c: Dict[str, int] = {}
+    for ch in cfg.pattern():
+        c[ch] = c.get(ch, 0) + 1
+    return c
+
+
+def segments(cfg: ModelConfig):
+    """Contiguous same-kind runs of the pattern: (kind, offset_in_kind,
+    len), ``offset_in_kind`` indexing the stacked params of that kind."""
+    segs, counts, pat, i = [], {}, cfg.pattern(), 0
+    while i < len(pat):
+        j = i
+        while j < len(pat) and pat[j] == pat[i]:
+            j += 1
+        segs.append((pat[i], counts.get(pat[i], 0), j - i))
+        counts[pat[i]] = counts.get(pat[i], 0) + (j - i)
+        i = j
+    return segs
+
+
+def num_shared_invocations(cfg: ModelConfig) -> int:
+    if not cfg.shared_attention_every:
+        return 0
+    return cfg.num_layers // cfg.shared_attention_every
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    return cfg.with_(num_kv_heads=cfg.shared_attn_kv_heads) \
+        if cfg.shared_attn_kv_heads else cfg
+
+
+def _shared_after(cfg: ModelConfig, layer: int, done: int) -> bool:
+    """Whether a shared-block invocation follows pattern layer ``layer``
+    (0-based) when ``done`` invocations have run."""
+    every = cfg.shared_attention_every
+    return bool(every) and (layer + 1) % every == 0 \
+        and done < num_shared_invocations(cfg)
+
+
 # --------------------------------------------------------------------------- #
 # parameters and caches
 # --------------------------------------------------------------------------- #
+def _attn_block_tree(cfg: ModelConfig) -> ParamTree:
+    d = cfg.d_model
+    t: ParamTree = {ATTN_NORM: ParamMeta((d,), init="ones")}
+    t.update(attention.attn_params(cfg))
+    t[MLP_NORM] = ParamMeta((d,), init="ones")
+    t.update(mlp.mlp_params(cfg))
+    return t
+
+
+def _block_tree(cfg: ModelConfig, kind: str) -> ParamTree:
+    """Per-layer (unstacked) parameters of one block kind, unprefixed."""
+    if kind == ATTN:
+        return _attn_block_tree(cfg)
+    cell = {MAMBA: ssm.ssm_params, MLSTM: xlstm.mlstm_params,
+            SLSTM: xlstm.slstm_params}[kind](cfg)
+    return {"norm": ParamMeta((cfg.d_model,), init="ones"), **cell}
+
+
 def param_tree(cfg: ModelConfig) -> ParamTree:
     check_supported(cfg)
-    d, v, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    d, v = cfg.d_model, cfg.vocab_size
     t: ParamTree = {"tok_embed": ParamMeta((v, d))}
-    block = {ATTN_NORM: ParamMeta((d,), init="ones")}
-    block.update(attention.attn_params(cfg))
-    block[MLP_NORM] = ParamMeta((d,), init="ones")
-    block.update(mlp.mlp_params(cfg))
-    for k, m in block.items():
-        t[k] = ParamMeta((L,) + m.shape, init=m.init, scale=m.scale)
+    for kind, n in kind_counts(cfg).items():
+        for k, m in _block_tree(cfg, kind).items():
+            t[PREFIX[kind] + k] = ParamMeta((n,) + m.shape, init=m.init,
+                                            scale=m.scale)
+    if num_shared_invocations(cfg):
+        for k, m in _attn_block_tree(_shared_cfg(cfg)).items():
+            t[f"{SHARED}.{k}"] = m
     t["final_norm"] = ParamMeta((d,), init="ones")
     if not cfg.tie_embeddings:
         t["head"] = ParamMeta((d, v))
@@ -74,41 +142,81 @@ def init(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
                        device)
 
 
-def layer_params(params: Params, cfg: ModelConfig, layer: int) -> Params:
-    """Views of one layer's weights into the stacked tensors."""
-    return {k: params[k][layer] for k in _layer_names(cfg)}
+@functools.lru_cache(maxsize=None)
+def _names(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
+    if kind == SHARED:
+        return tuple(_attn_block_tree(_shared_cfg(cfg)))
+    return tuple(_block_tree(cfg, kind))
 
 
-def _layer_names(cfg: ModelConfig):
-    return [ATTN_NORM, *attention.attn_params(cfg), MLP_NORM,
-            *mlp.mlp_params(cfg)]
+def layer_params(params: Params, cfg: ModelConfig, kind: str,
+                 index: int) -> Params:
+    """Views of the weights of the ``index``-th layer of ``kind``, under
+    their unprefixed names."""
+    pre = PREFIX[kind]
+    return {k: params[pre + k][index] for k in _names(cfg, kind)}
+
+
+def shared_params(params: Params, cfg: ModelConfig) -> Params:
+    """The shared block's weights under their unprefixed names."""
+    return {k: params[f"{SHARED}.{k}"] for k in _names(cfg, SHARED)}
+
+
+def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
+    return {k: a[None].expand(n, *a.shape).clone() for k, a in one.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                device=None) -> Cache:
-    """Decode caches at a context capacity (window-clamped)."""
+    """Decode caches at a context capacity (window-clamped for ``A``)."""
     check_supported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
-    C = min(capacity, cfg.sliding_window) if cfg.sliding_window else capacity
-    shape = (cfg.num_layers, batch, C, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {ATTN: {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    kc = kind_counts(cfg)
+    hd = cfg.resolved_head_dim
+    caches: Cache = {}
+    if ATTN in kc:
+        C = min(capacity, cfg.sliding_window) if cfg.sliding_window \
+            else capacity
+        shape = (kc[ATTN], batch, C, cfg.num_kv_heads, hd)
+        caches[ATTN] = {n: torch.zeros(shape, dtype=dtype, device=device)
+                        for n in ("k", "v")}
+    if MAMBA in kc:
+        caches[MAMBA] = _stack(ssm.ssm_init_cache(cfg, batch, dtype, device),
+                               kc[MAMBA])
+    if MLSTM in kc:
+        caches[MLSTM] = _stack(xlstm.mlstm_init_cache(cfg, batch, device),
+                               kc[MLSTM])
+    if SLSTM in kc:
+        caches[SLSTM] = _stack(xlstm.slstm_init_cache(cfg, batch, device),
+                               kc[SLSTM])
+    n_inv = num_shared_invocations(cfg)
+    if n_inv:
+        shape = (n_inv, batch, capacity, _shared_cfg(cfg).num_kv_heads, hd)
+        caches[SHARED] = {n: torch.zeros(shape, dtype=dtype, device=device)
+                          for n in ("k", "v")}
+    return caches
 
 
 def seed_cache(cfg: ModelConfig, cache: Cache, prefill_caches: Cache,
                prompt_len: int) -> Cache:
-    """Copy prefill K/V into a decode cache of larger capacity, in place:
-    token p at slot p (the last C tokens at ring slots p % C when the
-    prompt is longer than a windowed cache)."""
-    for n in ("k", "v"):
-        dst, src = cache[ATTN][n], prefill_caches[ATTN][n]
-        C, S = dst.shape[2], src.shape[2]
-        if S <= C:
-            dst[:, :, :S] = src.to(dst.dtype)
-        else:
-            dst.copy_(torch.roll(src[:, :, S - C:], shifts=(S - C) % C,
-                                 dims=2))
+    """Copy prefill outputs into a decode cache of larger capacity, in
+    place: K/V token p at slot p (the last C tokens at ring slots p % C
+    when the prompt is longer than a windowed cache); recurrent states as
+    they are."""
+    for kind, sub in cache.items():
+        if kind not in prefill_caches:
+            continue
+        for n, dst in sub.items():
+            src = prefill_caches[kind][n]
+            if kind not in KV_KINDS:
+                dst.copy_(src)
+                continue
+            C, S = dst.shape[2], src.shape[2]
+            if S <= C:
+                dst[:, :, :S] = src.to(dst.dtype)
+            else:
+                dst.copy_(torch.roll(src[:, :, S - C:], shifts=(S - C) % C,
+                                     dims=2))
     return cache
 
 
@@ -127,6 +235,35 @@ def logits_fn(cfg: ModelConfig, params: Params, x: torch.Tensor
     return x @ head
 
 
+def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
+                        prefix, prefix_len, prefix_positions,
+                        prefix_segment_ids):
+    """An attention block (an ``A`` layer or the shared block) over a
+    sequence; ``prefix`` is its seeded cache row {k, v} or None. Returns
+    (x, {k, v} of the call)."""
+    h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
+    y, (k, v) = attention.attn_prefill(
+        p, cfg, h, positions, segment_ids=segment_ids, kv_heads=kv_heads,
+        prefix_k=None if prefix is None else prefix["k"],
+        prefix_v=None if prefix is None else prefix["v"],
+        prefix_len=prefix_len, prefix_positions=prefix_positions,
+        prefix_segment_ids=prefix_segment_ids)
+    x = x + y
+    x = x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    return x, {"k": k, "v": v}
+
+
+def _attn_block_decode(p, cfg, x, pos, ck, cv, kv_heads, active):
+    h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
+    x = x + attention.attn_decode(p, cfg, h, pos, ck, cv, kv_heads=kv_heads,
+                                  active=active)
+    return x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+
+
+def _index(sub: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {n: a[i] for n, a in sub.items()}
+
+
 def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
                    segment_ids: Optional[torch.Tensor] = None,
@@ -135,36 +272,64 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    prefix_segment_ids: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """The stack without the final norm and head: (hidden (B,S,d), caches
-    holding this call's K/V, leaves (L,B,S,K,hd)). Arguments as ``prefill``."""
+    of this call: each layer's K/V (n,B,S,K,hd), or its recurrent state
+    at the end of the call). Arguments as ``prefill``."""
     check_supported(cfg)
+    kinds = set(cfg.pattern())
+    n_inv = num_shared_invocations(cfg)
+    if segment_ids is not None:
+        assert kinds <= {ATTN} and not n_inv, \
+            "token-packed prefill requires a pure-attention stack"
     if prefix_caches is not None:
-        assert positions is not None
-        assert (prefix_len is not None) or (
-            prefix_positions is not None and prefix_segment_ids is not None)
-        assert segment_ids is None or prefix_positions is not None, \
-            "a packed chunk wave needs per-slot prefix positions"
+        if kinds <= {ATTN} and not n_inv:
+            assert positions is not None
+            assert (prefix_len is not None) or (
+                prefix_positions is not None
+                and prefix_segment_ids is not None)
+            assert segment_ids is None or prefix_positions is not None, \
+                "a packed chunk wave needs per-slot prefix positions"
+        else:
+            # recurrent state resume: positions are meaningless to the
+            # recurrence and attention layers have no snapshot to resume
+            assert ATTN not in kinds and not n_inv, \
+                "chunk resume needs a pure-attention (kv prefix) or " \
+                "pure-recurrent (state snapshot) stack"
+            assert segment_ids is None
     x = embed(cfg, params, tokens)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    ks, vs = [], []
-    for layer in range(cfg.num_layers):
-        p = layer_params(params, cfg, layer)
-        h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
-        pk = pv = None
-        if prefix_caches is not None:
-            pk = prefix_caches[ATTN]["k"][layer]
-            pv = prefix_caches[ATTN]["v"][layer]
-        y, (k, v) = attention.attn_prefill(
-            p, cfg, h, positions, segment_ids=segment_ids, prefix_k=pk,
-            prefix_v=pv, prefix_len=prefix_len,
-            prefix_positions=prefix_positions,
-            prefix_segment_ids=prefix_segment_ids)
-        x = x + y
-        x = x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
-        ks.append(k)
-        vs.append(v)
-    return x, {ATTN: {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    outs: Dict[str, list] = {k: [] for k in cfg.block_kinds()}
+    shared = []
+    akw = dict(prefix_len=prefix_len, prefix_positions=prefix_positions,
+               prefix_segment_ids=prefix_segment_ids)
+    for layer, kind in enumerate(cfg.pattern()):
+        i = len(outs[kind])
+        p = layer_params(params, cfg, kind, i)
+        prefix = None if prefix_caches is None \
+            else _index(prefix_caches[kind], i)
+        if kind == ATTN:
+            x, c = _attn_block_prefill(p, cfg, x, positions, None,
+                                       segment_ids, prefix, **akw)
+        else:
+            y, c = RECURRENT_PREFILL[kind](
+                p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), init=prefix)
+            x = x + y
+        outs[kind].append(c)
+        if _shared_after(cfg, layer, len(shared)):
+            scfg = _shared_cfg(cfg)
+            sprefix = None if prefix_caches is None \
+                else _index(prefix_caches[SHARED], len(shared))
+            x, c = _attn_block_prefill(
+                shared_params(params, cfg), scfg, x, positions,
+                scfg.num_kv_heads, segment_ids, sprefix, **akw)
+            shared.append(c)
+    caches = {kind: {n: torch.stack([c[n] for c in lst]) for n in lst[0]}
+              for kind, lst in outs.items()}
+    if shared:
+        caches[SHARED] = {n: torch.stack([c[n] for c in shared])
+                          for n in ("k", "v")}
+    return x, caches
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -175,19 +340,21 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_positions: Optional[torch.Tensor] = None,
             prefix_segment_ids: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Returns (logits, caches holding the prompt's K/V). ``last_only``
-    projects only the final position.
+    """Returns (logits, caches of the call). ``last_only`` projects only
+    the final position.
 
-    Token-packed prefill: ``segment_ids`` (B,S) plus ``positions`` that
-    restart at 0 per segment. Chunked prefill: ``prefix_caches`` (the
-    request's seeded cache rows, (L,B,C,K,hd)) plus scalar ``prefix_len``
-    and absolute ``positions``; the returned caches hold the chunk's K/V
-    only. Packed chunk waves: ``segment_ids`` and per-slot
-    ``prefix_positions``/``prefix_segment_ids`` (B,C) instead."""
+    Token-packed prefill (pure attention): ``segment_ids`` (B,S) plus
+    ``positions`` that restart at 0 per segment. Chunked prefill over K/V
+    (pure attention): ``prefix_caches`` (the request's seeded cache rows,
+    (n,B,C,K,hd)) plus scalar ``prefix_len`` and absolute ``positions``;
+    the returned caches hold the chunk's K/V only. Packed chunk waves:
+    ``segment_ids`` and per-slot ``prefix_positions``/``prefix_segment_ids``
+    (B,C) instead. Recurrent chunked prefill (pure SSM/xLSTM stacks):
+    ``prefix_caches`` carries the previous chunk's state snapshots (the
+    shape this call returns), and the chunk continues the recurrence."""
     if embeds is not None:
         raise NotImplementedError(
-            "embedding frontends are not ported yet (ROADMAP queue 1: other "
-            "model families)")
+            f"embedding frontends are not ported yet ({NEXT_ITEM})")
     x, caches = prefill_hidden(cfg, params, tokens, positions, segment_ids,
                                prefix_caches, prefix_len, prefix_positions,
                                prefix_segment_ids)
@@ -196,20 +363,47 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits_fn(cfg, params, x), caches
 
 
+def _write_state(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                 active: Optional[torch.Tensor]) -> None:
+    """Write a recurrent layer's new state into its cache views in place;
+    with ``active`` (B,) bool, inactive rows keep theirs (a spurious
+    h <- f(h, x) advance would corrupt an idle slot's state)."""
+    for n, d in dst.items():
+        src = new[n].to(d.dtype)
+        if active is not None:
+            src = torch.where(active.view(-1, *[1] * (d.dim() - 1)), src, d)
+        d.copy_(src)
+
+
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 pos: torch.Tensor, caches: Cache,
                 active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """tokens (B,1); pos (B,) absolute positions. Writes each row's new K/V
-    into ``caches`` in place (only rows where ``active``, when given) and
-    returns (logits (B,V), caches)."""
+    """tokens (B,1); pos (B,) absolute positions. Updates ``caches`` in
+    place (only rows where ``active``, when given: K/V writes and recurrent
+    states alike) and returns (logits (B,V), caches)."""
     check_supported(cfg)
     x = embed(cfg, params, tokens)
-    ck, cv = caches[ATTN]["k"], caches[ATTN]["v"]
-    for layer in range(cfg.num_layers):
-        p = layer_params(params, cfg, layer)
-        h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
-        x = x + attention.attn_decode(p, cfg, h, pos, ck[layer], cv[layer],
-                                      active=active)
-        x = x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    done: Dict[str, int] = {}
+    n_shared = 0
+    for layer, kind in enumerate(cfg.pattern()):
+        i = done.get(kind, 0)
+        done[kind] = i + 1
+        p = layer_params(params, cfg, kind, i)
+        if kind == ATTN:
+            x = _attn_block_decode(p, cfg, x, pos, caches[ATTN]["k"][i],
+                                   caches[ATTN]["v"][i], None, active)
+        else:
+            state = _index(caches[kind], i)
+            y, new = RECURRENT_DECODE[kind](
+                p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), state)
+            x = x + y
+            _write_state(state, new, active)
+        if _shared_after(cfg, layer, n_shared):
+            scfg = _shared_cfg(cfg)
+            x = _attn_block_decode(
+                shared_params(params, cfg), scfg, x, pos,
+                caches[SHARED]["k"][n_shared], caches[SHARED]["v"][n_shared],
+                scfg.num_kv_heads, active)
+            n_shared += 1
     return logits_fn(cfg, params, x[:, 0]), caches

@@ -12,8 +12,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-# reference path -> port name. Per-layer entries are stacked (L, ...) on
-# both sides; the layouts are the same (``x @ W`` with W (d_in, d_out)).
+# reference path -> port name. Per-layer entries of a kind are stacked
+# (n, ...) on both sides, n the layers of that kind; the shared block is not
+# stacked. The layouts are the same (``x @ W`` with W (d_in, d_out)).
 JAX_TO_PORT: Dict[str, str] = {
     "embed/tok": "tok_embed",
     "A/norm1": "attn_norm",
@@ -29,6 +30,45 @@ JAX_TO_PORT: Dict[str, str] = {
     "A/mlp/w_down": "w_down",
     "final_norm": "final_norm",
     "head": "head",
+    # the recurrent kinds and the shared block, each under its own prefix.
+    # A cell's own norm scale (``ssm/norm``, ``cell/norm``) is the port's
+    # ``gate_norm`` / ``out_norm``, apart from the block's pre-norm ``norm``
+    "M/norm": "mamba.norm",
+    "M/ssm/in_proj": "mamba.in_proj",
+    "M/ssm/conv_w": "mamba.conv_w",
+    "M/ssm/conv_b": "mamba.conv_b",
+    "M/ssm/A_log": "mamba.A_log",
+    "M/ssm/D": "mamba.D",
+    "M/ssm/dt_bias": "mamba.dt_bias",
+    "M/ssm/norm": "mamba.gate_norm",
+    "M/ssm/out_proj": "mamba.out_proj",
+    "X/norm": "mlstm.norm",
+    "X/cell/wq": "mlstm.wq",
+    "X/cell/wk": "mlstm.wk",
+    "X/cell/wv": "mlstm.wv",
+    "X/cell/wi": "mlstm.wi",
+    "X/cell/wf": "mlstm.wf",
+    "X/cell/bf": "mlstm.bf",
+    "X/cell/wo": "mlstm.wo",
+    "X/cell/norm": "mlstm.out_norm",
+    "X/cell/down": "mlstm.down",
+    "S/norm": "slstm.norm",
+    "S/cell/w_in": "slstm.w_in",
+    "S/cell/r": "slstm.r",
+    "S/cell/b": "slstm.b",
+    "S/cell/norm": "slstm.out_norm",
+    "S/cell/down": "slstm.down",
+    "shared/norm1": "shared.attn_norm",
+    "shared/attn/wq": "shared.wq",
+    "shared/attn/wk": "shared.wk",
+    "shared/attn/wv": "shared.wv",
+    "shared/attn/wo": "shared.wo",
+    "shared/attn/q_norm": "shared.q_norm",
+    "shared/attn/k_norm": "shared.k_norm",
+    "shared/norm2": "shared.mlp_norm",
+    "shared/mlp/w_gate": "shared.w_gate",
+    "shared/mlp/w_up": "shared.w_up",
+    "shared/mlp/w_down": "shared.w_down",
 }
 
 

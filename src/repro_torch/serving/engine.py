@@ -1,11 +1,10 @@
 """Continuous-batching serving engine in PyTorch, driven by the EconoServe
 scheduler (``repro_torch.core``, a copy of the reference's).
 
-This is the port of ``repro.serving.engine.ServingEngine`` for
-pure-attention stacks. The scheduler owns KVC block accounting, batching
-policy, SLO ordering and KVC pipelining; the engine owns slots, caches, the
-prefill and decode calls and sampling. Its hot path follows the
-reference's:
+This is the port of ``repro.serving.engine.ServingEngine``. The scheduler
+owns KVC block accounting, batching policy, SLO ordering and KVC
+pipelining; the engine owns slots, caches, the prefill and decode calls and
+sampling. Its hot path follows the reference's:
 
   * Decode is asynchronous and device-resident (``EngineConfig
     .async_decode``): per-slot ``last_tok`` / ``pos`` / sampling params are
@@ -17,10 +16,16 @@ reference's:
   * Prefill is token-packed: the iteration's whole prompts run as one
     (1, T) call with per-segment positions and segment ids, then their K/V
     are seeded into the slot rows. The legacy padded path stays behind
-    ``packed_prefill=False`` as the equivalence reference.
+    ``packed_prefill=False`` as the equivalence reference. Stacks with
+    recurrent blocks (Mamba2, xLSTM, Zamba2's hybrid) prefill each prompt
+    at its exact shape instead: a pad token or a foreign segment would
+    fold into the recurrent state.
   * Chunked prefill executes the scheduler's partial grants: one chunk runs
     over its slot's seeded cache prefix; a wave of >= 2 chunks runs as one
-    packed call with per-segment prefix views.
+    packed call with per-segment prefix views. Pure-recurrent stacks carry
+    a per-request state snapshot across chunks (O(n) in all); hybrid
+    stacks, and every stack under ``incremental_chunk_prefill=False``,
+    recompute the whole prefix each chunk and reseed the row.
   * Decode megasteps: when the scheduler proves a K-iteration horizon the
     engine runs K iterations back to back in one host loop
     (``_mega_fn``) and replays the K scheduler iterations against the
@@ -28,7 +33,8 @@ reference's:
   * KV migration: ``export_kv`` / ``inject_kv`` move a queued request's
     cache image (CPU tensors with a CRC) and slot state between engines,
     for the fleet's prefill/decode roles, evacuation and crash recovery
-    (``repro_torch.cluster``).
+    (``repro_torch.cluster``). Recurrent and hybrid stacks have no
+    portable image: the receiver recomputes, as the reference's does.
 
 Under ``torch.profiler`` the prefill waves, the chunk calls and the decode
 dispatch of each step show as the ranges ``engine.prefill_wave``,
@@ -66,7 +72,6 @@ from ..obs import MetricsRegistry, publish_engine
 from .sampling import SamplingParams, sample_in_graph, sample_per_request
 
 MIN_SEQ_BUCKET = 16
-FAMILIES_ITEM = "ROADMAP queue 1: other model families"
 
 
 class InvalidRequestError(ValueError):
@@ -147,9 +152,10 @@ class EngineConfig:
     undrained *dispatches* (a K-iteration megastep window counts once).
     ``decode_megastep`` is the max fused decode iterations per window
     (1 = the per-iteration async path; requires ``async_decode``).
-    ``incremental_chunk_prefill=False`` (recompute every chunk's prefix) is
-    not ported in this slice. ``packed_chunk_prefill=False`` keeps one call
-    per chunk. ``host_swap`` captures a de-slotted GT's cache pages to a
+    ``incremental_chunk_prefill=False`` makes every chunk recompute its
+    whole prefix (the reference path the incremental and state-carry ones
+    are held against). ``packed_chunk_prefill=False`` keeps one call per
+    chunk. ``host_swap`` captures a de-slotted GT's cache pages to a
     bounded host pool and restores them on next schedule instead of
     recomputing; ``swap_watermarks`` arms the proactive ``WatermarkGuard``.
     """
@@ -211,16 +217,12 @@ class ServingEngine:
         if cfg.sliding_window is not None:
             raise NotImplementedError(
                 f"{cfg.name}: sliding-window ring caches are not ported yet "
-                f"({FAMILIES_ITEM})")
+                f"({model.NEXT_ITEM})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.capacity = capacity
         self.ecfg = engine_cfg or EngineConfig()
-        if not self.ecfg.incremental_chunk_prefill:
-            raise NotImplementedError(
-                f"incremental_chunk_prefill=False (the recompute chunk path) "
-                f"is not ported yet ({FAMILIES_ITEM})")
         dev = self.device
         self.params = params if params is not None else model.init(
             cfg, torch.Generator(device=dev).manual_seed(seed), dev)
@@ -237,7 +239,8 @@ class ServingEngine:
         self.predictor = NoisyPredictor(accuracy=rl_accuracy, seed=seed,
                                         bucket=scfg.bucket)
 
-        # slot-based caches, (L, B, C, K, hd) per leaf
+        # slot-based caches: (n, B, C, K, hd) K/V leaves, (n, B, ...)
+        # recurrent states
         self.caches = model.init_cache(cfg, max_batch, capacity, device=dev)
         self.slot_of: Dict[int, int] = {}
         self.free_slots = list(range(max_batch))
@@ -251,17 +254,26 @@ class ServingEngine:
         self.requests: Dict[int, GenRequest] = {}
         self._rid = 0
 
-        # the port runs attention-only stacks, which tolerate padding and
-        # token packing (masking ignores pad positions and foreign segments)
+        # padded and token-packed prefill are exact only for pure-attention
+        # stacks (masking ignores pad positions and foreign segments);
+        # recurrent blocks would fold them into their state, so they get
+        # exact shapes
         self._pad_prefill = set(cfg.pattern()) <= {ATTN}
         self._async = self.ecfg.async_decode
         self._packed = self.ecfg.packed_prefill and self._pad_prefill
         self._prefill_shapes: Set[Tuple[int, int]] = set()
+        # chunks attend over the seeded cache prefix (pure attention), or
+        # carry the recurrent-state snapshot (pure-recurrent stacks), or
+        # recompute their whole prefix (hybrid stacks; and every stack when
+        # incremental_chunk_prefill is off)
         self._chunk_incremental = (self.ecfg.incremental_chunk_prefill
                                    and self._pad_prefill)
         self._chunk_packed = (self.ecfg.packed_chunk_prefill
                               and self._chunk_incremental and self._packed)
-        self._rec_state: Dict[int, dict] = {}
+        self._chunk_rec = (self.ecfg.incremental_chunk_prefill
+                           and ATTN not in cfg.pattern()
+                           and not model.num_shared_invocations(cfg))
+        self._rec_state: Dict[int, dict] = {}       # rid -> state snapshot
         self._chunk_progress: Dict[int, int] = {}   # rid -> ctx tokens seeded
         self.n_prefill_chunks = 0
         self.n_chunk_calls = 0                      # chunk-prefill dispatches
@@ -430,18 +442,21 @@ class ServingEngine:
         st["top_ks"][idx] = self._t(sel(top_ks), torch.int32)
         st["eos"][idx] = self._t(sel(eos), torch.int32)
 
-    def _write_rows(self, src: Dict[str, torch.Tensor], slot_idx, pos_idx,
-                    src_idx) -> None:
-        """One in-place scatter per cache leaf: cache[:, slot_idx[i],
-        pos_idx[i]] = src[:, src_idx[i]] with src leaves (L, N, K, hd). The
+    def _write_rows(self, src: Dict[str, Dict[str, torch.Tensor]], slot_idx,
+                    pos_idx, src_idx) -> None:
+        """One in-place scatter per K/V cache leaf: cache[:, slot_idx[i],
+        pos_idx[i]] = src[:, src_idx[i]] with src leaves (n, N, K, hd). The
         index arrays hold real tokens only (pad rows and pad positions were
         dropped on the host)."""
         si = self._t(slot_idx, torch.long)
         pi = self._t(pos_idx, torch.long)
         ri = self._t(src_idx, torch.long)
-        for n in ("k", "v"):
-            dst = self.caches[ATTN][n]
-            dst[:, si, pi] = src[n][:, ri].to(dst.dtype)
+        for kind in model.KV_KINDS:
+            if kind not in self.caches:
+                continue
+            for n in ("k", "v"):
+                dst = self.caches[kind][n]
+                dst[:, si, pi] = src[kind][n][:, ri].to(dst.dtype)
 
     def _prefill_packed(self, toks, pos, seg, last_idx):
         """Token-packed prefill: toks/pos/seg (1, T). Only the rows at
@@ -456,7 +471,8 @@ class ServingEngine:
         return last, caches
 
     def _prefill(self, toks, lens):
-        """Legacy padded prefill: (Bb, Sb) rows, implicit causal masking."""
+        """Prefill of (Bb, Sb) rows with implicit positions: the legacy
+        padded path, or an exact-shape call (recurrent stacks)."""
         x, caches = model.prefill_hidden(self.cfg, self.params,
                                          self._t(toks, torch.long))
         rows = torch.arange(x.shape[0], device=self.device)
@@ -478,24 +494,32 @@ class ServingEngine:
             si.append(np.full(L, s))
             pi.append(np.arange(L))
             ri.append(st + np.arange(L))
-        src = {n: pf_caches[ATTN][n][:, 0] for n in ("k", "v")}
+        src = {ATTN: {n: pf_caches[ATTN][n][:, 0] for n in ("k", "v")}}
         self._write_rows(src, np.concatenate(si), np.concatenate(pi),
                          np.concatenate(ri))
 
     def _seed(self, pf_caches, slots, lens) -> None:
-        """Seed decode caches from a padded prefill batch (L, Bb, S, K, hd):
-        row i's first lens[i] positions land in its slot."""
-        S = pf_caches[ATTN]["k"].shape[2]
-        si, pi, ri = [], [], []
-        for i, (s, L) in enumerate(zip(slots, lens)):
-            if s >= self.max_batch:
-                continue              # pad row
-            si.append(np.full(L, s))
-            pi.append(np.arange(L))
-            ri.append(i * S + np.arange(L))
-        src = {n: pf_caches[ATTN][n].flatten(1, 2) for n in ("k", "v")}
-        self._write_rows(src, np.concatenate(si), np.concatenate(pi),
-                         np.concatenate(ri))
+        """Seed decode caches from a prefill batch: K/V leaves
+        (n, Bb, S, K, hd) put row i's first lens[i] positions in its slot;
+        recurrent leaves (n, Bb, ...) are a plain row scatter. Pad rows
+        (slot ``max_batch``) are dropped."""
+        keep = [i for i, s in enumerate(slots) if s < self.max_batch]
+        kv = [kind for kind in model.KV_KINDS if kind in pf_caches]
+        if kv:
+            S = pf_caches[kv[0]]["k"].shape[2]
+            self._write_rows(
+                {kind: {n: pf_caches[kind][n].flatten(1, 2)
+                        for n in ("k", "v")} for kind in kv},
+                np.concatenate([np.full(lens[i], slots[i]) for i in keep]),
+                np.concatenate([np.arange(lens[i]) for i in keep]),
+                np.concatenate([i * S + np.arange(lens[i]) for i in keep]))
+        rows = self._t([slots[i] for i in keep], torch.long)
+        ri = self._t(keep, torch.long)
+        for kind, sub in self.caches.items():
+            if kind in model.KV_KINDS:
+                continue
+            for n, dst in sub.items():
+                dst[:, rows] = pf_caches[kind][n][:, ri].to(dst.dtype)
 
     def _chunk_prefill(self, toks, pos, slot: int, start: int, length: int):
         """Incremental chunk prefill + in-place seed: the chunk's queries
@@ -541,8 +565,8 @@ class ServingEngine:
         si = np.concatenate([np.full(L, s) for s, L in zip(slots, lens)])
         pi = np.concatenate([s + np.arange(L) for s, L in zip(starts, lens)])
         ri = np.concatenate([o + np.arange(L) for o, L in zip(offs, lens)])
-        self._write_rows({nm: pf[ATTN][nm][:, 0] for nm in ("k", "v")},
-                         si, pi, ri)
+        self._write_rows({ATTN: {nm: pf[ATTN][nm][:, 0]
+                                 for nm in ("k", "v")}}, si, pi, ri)
         return last
 
     def _inject_seed(self, kv: dict, slot: int, ctx: int) -> None:
@@ -669,8 +693,9 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     @property
     def can_migrate_kv(self) -> bool:
-        """A portable KV image needs identity cache placement, which every
-        stack this port runs has."""
+        """A portable KV image needs identity cache placement: an
+        attention-pure stack (recurrent states are not positionally
+        addressable the same way). Sliding-window rings are not ported."""
         return self._pad_prefill
 
     def _capture_kv(self, slot: int, ctx: int) -> dict:
@@ -688,8 +713,9 @@ class ServingEngine:
         engine and its scheduler. The payload feeds ``inject_kv``;
         ``payload["kv"]`` is the {kind: {"k", "v"}} image of the first
         ``ctx`` cache positions as CPU tensors, or None when the request
-        lost its slot and no host-pool image of the right extent survives
-        (the receiver then recomputes, like a swap-preempted GT).
+        lost its slot and no host-pool image of the right extent survives,
+        or the stack is recurrent or hybrid (the receiver then recomputes,
+        like a swap-preempted GT).
 
         Must not be called while a megastep window is open: freeing the
         request's KVC mid-window could admit a waiter the window never saw
@@ -931,8 +957,11 @@ class ServingEngine:
                 chunked.append((r, chunk))
         if whole:
             self.n_prefill_waves += 1
+            # one call for the wave, or one exact-shape call per prompt
+            groups = [whole] if self._pad_prefill else [[it] for it in whole]
             with torch.profiler.record_function("engine.prefill_wave"):
-                self._prefill_group(whole, now)
+                for group in groups:
+                    self._prefill_group(group, now)
         if chunked:
             with torch.profiler.record_function("engine.prefill_chunks"):
                 self._run_chunk_items(chunked, now)
@@ -955,7 +984,7 @@ class ServingEngine:
         n = len(group)
         lens_true = [len(c) for c in ctxs]
         maxlen = max(lens_true)
-        Bb = self.max_batch
+        Bb = self.max_batch if self._pad_prefill else n
         # pad rows: len 1, slot ``max_batch`` (dropped before any write)
         lens = np.ones(Bb, np.int32)
         slot_arr = np.full(Bb, self.max_batch, np.int32)
@@ -986,10 +1015,12 @@ class ServingEngine:
                                                           last_idx)
             self._seed_packed(pf_caches, slot_arr, starts_np, lens)
         else:
-            # pow2 bucket, clamped to capacity
-            Sb = seq_bucket(maxlen)
-            if Sb > self.capacity:
-                Sb = max(maxlen, self.capacity)
+            Sb = maxlen
+            if self._pad_prefill:
+                # pow2 bucket, clamped to capacity
+                Sb = seq_bucket(maxlen)
+                if Sb > self.capacity:
+                    Sb = max(maxlen, self.capacity)
             toks = np.zeros((Bb, Sb), np.int64)
             for i, ctx in enumerate(ctxs):
                 toks[i, :len(ctx)] = ctx
@@ -1040,9 +1071,11 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def _run_chunk_items(self, items, now: float) -> None:
         """Execute partial-prompt (chunked) PT grants: a wave of >= 2 as
-        one packed call, otherwise one prefix-attending call per chunk.
-        Only the chunk that completes the prompt samples the first
-        response token."""
+        one packed call, otherwise one call per chunk, attending over the
+        request's seeded cache prefix (pure attention), resuming its
+        carried recurrent-state snapshot (pure-recurrent stacks), or
+        recomputing the whole prefix (the reference path). Only the chunk
+        that completes the prompt samples the first response token."""
         infos = []
         for r, chunk in items:
             g = self.requests[r.rid]
@@ -1069,14 +1102,23 @@ class ServingEngine:
                 self.n_chunk_calls += 1
                 self.max_chunk_items_per_call = max(
                     self.max_chunk_items_per_call, 1)
-                lasts.append(self._exec_chunk_incremental(
-                    ctx, start, end, slot))
+                if self._chunk_incremental:
+                    lasts.append(self._exec_chunk_incremental(
+                        ctx, start, end, slot))
+                elif self._chunk_rec:
+                    lasts.append(self._exec_chunk_state(ctx, start, end,
+                                                        r.rid))
+                else:
+                    lasts.append(self._exec_chunk_recompute(ctx, end, slot))
         finals = []
         for (r, ctx, start, end, slot, completing), last in zip(infos,
                                                                 lasts):
             self._chunk_progress[r.rid] = end
             if completing:
                 del self._chunk_progress[r.rid]
+                if self._chunk_rec:
+                    # the carried snapshot becomes the decode-cache row
+                    self._seed(self._rec_state.pop(r.rid), [slot], [end])
                 finals.append((r, slot, last, end))
         if not finals:
             return
@@ -1154,6 +1196,32 @@ class ServingEngine:
         pos = (start + np.arange(L, dtype=np.int32))[None]
         self._prefill_shapes.add((1, L))
         return self._chunk_prefill(toks, pos, slot, start, L)
+
+    def _exec_chunk_state(self, ctx, start: int, end: int, rid: int):
+        """Chunk prefill for pure-recurrent stacks: resume from the carried
+        per-request state snapshot (O(n) in all, against the recompute
+        path's O(n^2)); the snapshot seeds the decode-cache row when the
+        prompt completes. Exact shapes; a first chunk (no snapshot yet)
+        starts from the zero state."""
+        L = end - start
+        toks = np.asarray([ctx[start:end]], np.int64)
+        self._prefill_shapes.add((1, L))
+        x, self._rec_state[rid] = model.prefill_hidden(
+            self.cfg, self.params, self._t(toks, torch.long),
+            prefix_caches=self._rec_state.pop(rid, None))
+        return model.logits_fn(self.cfg, self.params, x[0, L - 1])
+
+    def _exec_chunk_recompute(self, ctx, end: int, slot: int):
+        """Chunk fallback with no resumable prefix (hybrid stacks, or
+        ``incremental_chunk_prefill=False``): re-run positions [0, end) and
+        reseed the whole cache row. Exact length for every stack (the
+        reference pads attention-pure ones to a pow2 bucket only to bound
+        XLA's compiles)."""
+        toks = np.asarray([ctx[:end]], np.int64)
+        self._prefill_shapes.add((1, end))
+        last, pf_caches = self._prefill(toks, [end])
+        self._seed(pf_caches, [slot], [end])
+        return last[0]
 
     # ------------------------------------------------------------------ #
     def _run_decode(self, reqs: Sequence[Request], now: float) -> None:

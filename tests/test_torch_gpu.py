@@ -94,6 +94,81 @@ def test_paged_decode_matches_plain(card, dtype, hd):
     assert paged_decode_attention.launches == before + 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 112, 160])
+@pytest.mark.parametrize("H,K", [(4, 4), (16, 4)], ids=["G1", "G4"])
+def test_new_head_dims_match_plain(card, dtype, hd, H, K):
+    """hd 96, 112 and 160 (phi3-vision, zamba2-7b, stablelm-12b) with
+    G = 1 (MHA: 15 of the decode kernel's 16 MMA rows empty) and G = 4:
+    flash in causal mode (zamba2's exact prefill) across tile edges and
+    over a cache prefix; decode at ctx 0, 1, page edges and full, through a
+    block table and through contiguous rows."""
+    g = card
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    q, k, v = rnd(1, 193, H, hd), rnd(1, 193, K, hd), rnd(1, 193, K, hd)
+    _close(flash_attention(q, k, v), ref.flash_attention(q, k, v), dtype)
+    C, S = 128, 70
+    slot = torch.arange(C, device="cuda")
+    kpos = torch.cat([torch.where(slot < 65, slot, POS_INVALID),
+                      65 + torch.arange(S, device="cuda")])[None].int()
+    qpos = (65 + torch.arange(S, device="cuda"))[None].int()
+    q, k, v = rnd(1, S, H, hd), rnd(1, C + S, K, hd), rnd(1, C + S, K, hd)
+    _close(flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos),
+           ref.flash_attention(q, k, v, q_positions=qpos,
+                               kv_positions=kpos), dtype)
+    B, page, MP = 5, 16, 9
+    P = B * MP + 2
+    q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
+    bt = torch.randperm(P, generator=torch.Generator().manual_seed(2))[
+        :B * MP].reshape(B, MP).int().cuda()
+    cl = torch.tensor([0, 1, page, page + 1, MP * page], dtype=torch.int32,
+                      device="cuda")
+    got = paged_decode_attention(q, kp, vp, bt, cl)
+    _close(got, ref.paged_decode_attention(q, kp, vp, bt, cl), dtype)
+    assert torch.count_nonzero(got[0]) == 0
+    rows = ops.decode_attention(q, kp[bt.long()].reshape(B, -1, K, hd),
+                                vp[bt.long()].reshape(B, -1, K, hd), cl)
+    _close(rows, got, dtype)
+
+
+def test_zamba2_engine_on_the_card_matches_the_cpu(card):
+    """zamba2-7b reduced in float32 (TF32 off): the engine on the card
+    (both kernels at G = 1 in the shared block, Mamba2 elsewhere, chunks
+    recomputed) gives the CPU engine's greedy streams, completion times
+    and counters on the same weights."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import model
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+    cfg = get_config("zamba2_7b").reduced().with_(dtype="float32",
+                                                  param_dtype="float32")
+    scfg = dict(kvc_tokens=4 * 192, block_size=16, tfs=48,
+                max_model_len=192, max_batch_reqs=4)
+
+    def run(device, params=None):
+        eng = ServingEngine(cfg, params, max_batch=4, capacity=192,
+                            rl_accuracy=1.0, device=device,
+                            scheduler_cfg=SchedulerConfig(**scfg))
+        rng = np.random.default_rng(3)
+        reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(8, 120)))],
+            params=SamplingParams(max_new_tokens=int(rng.integers(6, 30))))
+            for _ in range(6)]
+        eng.run(reqs)
+        return eng, [(g.output, g.t_done) for g in reqs]
+
+    flash_attention.launches = paged_decode_attention.launches = 0
+    gpu, got = run("cuda")
+    assert flash_attention.launches > 0
+    assert paged_decode_attention.launches == \
+        model.num_shared_invocations(cfg) * gpu.decode_iters
+    cpu, want = run("cpu", {k: t.cpu() for k, t in gpu.params.items()})
+    assert got == want
+    assert gpu.n_prefill_chunks == cpu.n_prefill_chunks > 0
+    assert gpu.sync_counts == cpu.sync_counts
+
+
 def test_wrappers_refuse_unsupported_inputs(card):
     q = torch.zeros(1, 16, 2, 48, device="cuda")          # hd 48
     with pytest.raises(ValueError):

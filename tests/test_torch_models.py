@@ -106,7 +106,8 @@ def test_init_uses_the_reference_std_rule(cfgs, weights):
     gen = torch.Generator().manual_seed(0)
     p = model.init(cfg, gen, "cpu")
     assert torch.equal(p["attn_norm"], torch.ones_like(p["attn_norm"]))
-    for path, name in JAX_TO_PORT.items():
+    for path in jp:
+        name = JAX_TO_PORT[path]
         want = float(np.std(np.asarray(jp[path])))
         assert abs(float(p[name].std()) - want) <= 0.05 * want + 1e-6, name
     again = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -276,8 +277,28 @@ def test_greedy_stream_matches_reference(cfgs, weights, seed):
 
 
 def test_other_layer_kinds_raise():
-    for arch, item in (("xlstm_125m", "other model families"),
-                       ("zamba2_7b", "other model families"),
-                       ("phi3_5_moe_42b", "other model families")):
-        with pytest.raises(NotImplementedError, match=item):
-            model.param_tree(get_config(arch).reduced())
+    """MoE, embedding frontends and sliding-window caches (in the engine)
+    still raise, naming the next ROADMAP item; the recurrent and hybrid
+    stacks now build."""
+    from repro_torch.serving import ServingEngine
+    item = "MoE, embedding frontends and sliding-window ring caches"
+    with pytest.raises(NotImplementedError, match=item):
+        model.param_tree(get_config("phi3_5_moe_42b").reduced())
+    with pytest.raises(NotImplementedError, match=item):
+        ServingEngine(get_config("qwen3_8b").reduced().with_(
+            sliding_window=64, **F32), device="cpu")
+    cfg = get_config("phi3_vision_4_2b").reduced().with_(**F32)
+    p = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        model.prefill(cfg, p, torch.zeros((1, 4), dtype=torch.long),
+                      embeds=torch.zeros((1, 2, cfg.d_model)))
+    for arch, kinds in (("xlstm_125m", {"X", "S"}), ("zamba2_7b", {"M"})):
+        cfg = get_config(arch).reduced().with_(**F32)
+        p = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert set(p) == set(model.param_tree(cfg))
+        cache = model.init_cache(cfg, 2, 32)
+        assert kinds <= set(cache)
+        logits, _ = model.prefill(cfg, p, torch.zeros((2, 5),
+                                                      dtype=torch.long),
+                                  last_only=True)
+        assert logits.shape == (2, cfg.vocab_size)
