@@ -1,6 +1,7 @@
 """Card smoke test of the PyTorch port: build, check and time the CUDA
-kernels, then serve qwen3-8b and zamba2-7b at full width through
-``ServingEngine``.
+kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE and mistral-nemo-12b
+(sliding-window ring caches) at full width through ``ServingEngine`` and
+run phi3-vision's embedding-frontend prefill.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -18,10 +19,13 @@ Phases (any failure raises and exits non-zero):
      split edges +-1, full), and at the serving paths' shapes (qwen3:
      packed prefill, a chunk over a cache row, a packed chunk wave, decode
      at hd 128; zamba2: causal prefill (1, 1536, 32, 112), decode
-     (8, 2048, 32, 112)); at those six, time kernel, plain version and one
-     library call (SDPA, bool mask, ``enable_gqa``) with CUDA events, each
-     rotating over copies of its inputs so that every call finds them cold
-     in L2, and compute each kernel's bound from the call's inputs;
+     (8, 2048, 32, 112); mistral-nemo: causal prefill (1, 10240, 32, 128)
+     under the 8192 window with G = 4, decode over four full 8192-slot
+     rings; phi3-vision: causal prefill (2, 1152, 32, 96)); at those nine,
+     time kernel, plain version and one library call (SDPA, bool mask,
+     ``enable_gqa``) with CUDA events, each rotating over copies of its
+     inputs so that every call finds them cold in L2, and compute each
+     kernel's bound from the call's inputs;
   4. the main path: qwen3-8b at its published widths and depth (36 layers,
      bf16, seeded random weights), max_batch 8, capacity 2048, default
      EngineConfig, 12 requests; checks lengths, launch counters, chunk waves
@@ -62,10 +66,34 @@ Phases (any failure raises and exits non-zero):
         layers (2 shared invocations), float32;
      c. xlstm-125m at its published size, float32: prompts chunked under a
         128-token budget carry their recurrent state from chunk to chunk,
-        and the streams equal those of the recompute path.
-The line before the last is the kernels' JSON record (launches summed over
-phases 4, 6 and 7a; the top-level times are the zamba2 shapes, every
-timed shape under ``shapes``); the last line is
+        and the streams equal those of the recompute path;
+  8. MoE:
+     a. phi3.5-MoE at its published widths (16 experts of 6400, top-2,
+        capacity factor 1.25) cut to 24 of 32 layers (the weights of 32
+        do not fit one card beside the caches), bf16, on phase 4's
+        settings and workload: every request complete, megastep windows,
+        flash launches a multiple of 24, decode 24 x the decode
+        iterations; tokens/s and peak memory of the unsynchronised run,
+        then the profiled run as phase 4's, with the MoE's share of the
+        device time (the ``model.moe`` ranges);
+     b. greedy parity as phase 5's, phi3.5-MoE at full width cut to 4
+        layers, float32, capacity factor 16 (nothing drops);
+  9. ring caches:
+     a. mistral-nemo-12b at its published widths and depth, bf16, window
+        8192 (the reference's long-context window), max_batch 4, capacity
+        16384 (rings of 8192 slots), 6 requests of 8400-12000 prompt and
+        32-64 output tokens: every request complete, the attention cache
+        rows 8192 wide; tokens/s, peak memory and launches;
+     b. greedy parity as phase 5's, mistral-nemo at full width cut to 4
+        layers, float32, window 8192, prompts of 8300 and 8700 tokens;
+ 10. phi3-vision-4.2b at its published widths and depth, float32: a
+     prefill over 1024 frontend embeddings and 128 tokens (B = 2), seeded
+     into a cache, and 8 decode steps equal one prefill over the whole
+     sequence within 2e-3.
+Each model is freed before the next is built. The line before the last is
+the kernels' JSON record (launches summed over the serving phases 4, 6,
+7a, 8a and 9a; the top-level times are the zamba2 shapes, every timed
+shape under ``shapes``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -90,7 +118,11 @@ PEAK_BYTES = 3.35e12
 # the two may differ by one bf16 ulp of the output: 2**-7 relative, and
 # 1e-3 absolute for outputs near zero.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
+# the reference's long-context sliding window (``LONG_WINDOW`` in
+# src/repro/launch/shapes.py, which ``adapt_config`` gives mistral-nemo-12b)
+WINDOW = 8192
 SPANS = ("engine.prefill_wave", "engine.prefill_chunks", "engine.decode")
+MOE_SPAN = "model.moe"      # nested inside SPANS: a MoE layer's routing + FFN
 
 
 def log(msg: str) -> None:
@@ -428,6 +460,19 @@ def phase_kernels(torch, seed: int) -> dict:
           for _ in range(3)]
     flash_shapes.insert(0, ("zamba2 exact prefill (1,1536,32,112) causal",
                             (*zq, {})))
+    # mistral-nemo-12b's ring stack (phase 9a): a 10240-token prompt under
+    # the 8192-token window, G = 4; phi3-vision's prefill of 1024 patches
+    # and 128 tokens (phase 10): causal MHA at hd 96, B = 2
+    mq = torch.randn(1, 10240, 32, 128, generator=gen, device="cuda")
+    mkv = [torch.randn(1, 10240, 8, 128, generator=gen, device="cuda")
+           for _ in range(2)]
+    flash_shapes.append((f"mistral-nemo prefill (1,10240,32,128) k/v "
+                         f"(1,10240,8,128) causal window {WINDOW}",
+                         (mq, *mkv, dict(window=WINDOW))))
+    vq = [torch.randn(2, 1152, 32, 96, generator=gen, device="cuda")
+          for _ in range(3)]
+    flash_shapes.append(("phi3-vision prefill (2,1152,32,96) causal",
+                         (*vq, {})))
     flash_recs = []
     for label, (q, k, v, kw) in flash_shapes:
         for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
@@ -437,7 +482,7 @@ def phase_kernels(torch, seed: int) -> dict:
                    ref.flash_attention(qq, kk, vv, **kw), dn, flash_errs)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
         Hq, hdq = q.shape[2], q.shape[3]
-        mask = _flash_mask(torch, q.shape[1], k.shape[1], kw)
+        mask = _flash_mask(torch, q.shape[0], q.shape[1], k.shape[1], kw)
         pairs = int(mask.sum())
         ints = sum(t.numel() for t in kw.values()
                    if isinstance(t, torch.Tensor))
@@ -457,6 +502,10 @@ def phase_kernels(torch, seed: int) -> dict:
     ctx[0], ctx[1] = 1, C
     paged_recs = [_decode_serving(torch, gen, ctx, H, K, hd, paged_errs)
                   for H, K, hd in ((32, 8, 128), (32, 32, 112))]
+    # phase 9a's decode: four full rings of WINDOW slots
+    rings = torch.full((4,), WINDOW, dtype=torch.int32, device="cuda")
+    paged_recs.insert(0, _decode_serving(torch, gen, rings, 32, 8, 128,
+                                         paged_errs, C=WINDOW))
     return {
         "flash_prefill": dict(flash_recs[0], max_abs_err_all=max(flash_errs),
                               shapes=flash_recs),
@@ -466,15 +515,15 @@ def phase_kernels(torch, seed: int) -> dict:
 
 
 def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
-                    paged_errs: list) -> dict:
-    """A serving decode shape (B = 8 rows of C = 2048 slots, contexts
-    ``ctx``): check it in f32 and bf16 through the contiguous rows and a
-    block table, then time kernel, plain version and SDPA in bf16."""
+                    paged_errs: list, C: int = 2048) -> dict:
+    """A serving decode shape (B rows of C slots, contexts ``ctx`` (B,)):
+    check it in f32 and bf16 through the contiguous rows and a block
+    table, then time kernel, plain version and SDPA in bf16."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     dt = torch.bfloat16
-    B, C = ctx.shape[0], 2048
+    B = ctx.shape[0]
     ck = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
     cv = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
     qd = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
@@ -512,7 +561,7 @@ def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
     return dict(rec, shape=label, max_abs_err=err)
 
 
-def _flash_mask(torch, Sq: int, Sk: int, kw: dict):
+def _flash_mask(torch, B: int, Sq: int, Sk: int, kw: dict):
     """The (B, Sq, Sk) causal mask of ``ref.flash_attention`` for these
     mask arguments: what a library call is given, and what the bound
     counts."""
@@ -522,13 +571,16 @@ def _flash_mask(torch, Sq: int, Sk: int, kw: dict):
         jj = kw["kv_positions"][:, None, :]
         mask = (jj < POS_INVALID) & (jj <= ii)
     else:
-        i = torch.arange(Sq, device="cuda")
-        mask = (i[None, :] <= i[:, None])[None]
+        ii = torch.arange(Sq, device="cuda")[None, :, None]
+        jj = torch.arange(Sk, device="cuda")[None, None, :]
+        mask = jj <= ii
+    if kw.get("window") is not None:
+        mask = mask & (jj > ii - kw["window"])
     if kw.get("segment_ids") is not None:
         sk = kw.get("kv_segment_ids")
         sk = kw["segment_ids"] if sk is None else sk
         mask = mask & (kw["segment_ids"][:, :, None] == sk[:, None, :])
-    return mask
+    return mask.expand(B, Sq, Sk)
 
 
 def _measure(torch, label, inputs, kernel, plain, library, *, flops,
@@ -688,23 +740,31 @@ def read_profile(prof) -> dict:
     (``SPANS``), which owns the kernel. The two attention kernels are
     launched through ctypes, outside any op, and are given to their phase
     by name. Returns device us and launches by kernel group, device us and
-    launches of the aten kernels in each range, and the busiest kernels."""
+    launches of the aten kernels in each range, the device us of the aten
+    kernels inside the MoE's ranges (``MOE_SPAN``, nested in those), and
+    the busiest kernels."""
     import bisect
     from torch.autograd import DeviceType
-    spans, op_start, dev = [], {}, []
+    spans, moe_spans, op_start, dev = [], [], {}, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CPU:
             name = e.name()
             if name in SPANS:
                 spans.append((e.start_ns(), e.end_ns(), name))
+            elif name == MOE_SPAN:
+                moe_spans.append((e.start_ns(), e.end_ns()))
             elif e.linked_correlation_id() == 0:
                 op_start[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == DeviceType.CUDA and e.name() not in SPANS:
+        elif e.device_type() == DeviceType.CUDA and \
+                e.name() not in SPANS + (MOE_SPAN,):
             # (the ranges also show on the device timeline: not kernels)
             dev.append((e.linked_correlation_id(), e.name(),
                         e.duration_ns() / 1e3))
     spans.sort()
+    moe_spans.sort()
     starts = [s[0] for s in spans]
+    moe_starts = [s[0] for s in moe_spans]
+    moe_us = 0.0
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     group_n = dict.fromkeys(groups, 0)
@@ -726,10 +786,13 @@ def read_profile(prof) -> dict:
         if i >= 0 and t < spans[i][1]:
             span_us[spans[i][2]] += us
             span_n[spans[i][2]] += 1
+        j = bisect.bisect_right(moe_starts, t) - 1 if t is not None else -1
+        if j >= 0 and t < moe_spans[j][1]:
+            moe_us += us
     top = sorted(((v[0], v[1], k) for k, v in by_name.items()),
                  reverse=True)[:8]
     return {"groups": groups, "group_launches": group_n, "span_us": span_us,
-            "span_launches": span_n, "top": top,
+            "span_launches": span_n, "top": top, "moe_us": moe_us,
             "combine_launches": sum(v[1] for k, v in by_name.items()
                                     if "paged_decode_combine" in k)}
 
@@ -797,6 +860,8 @@ def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
                span_us["engine.prefill_chunks"], eng.n_chunk_calls),
            "phase_share_of_busy": (pf_us + dec_us) / busy_us
            if busy_us else None,
+           "moe_device_ms": rp["moe_us"] / 1e3,
+           "moe_share_of_busy": rp["moe_us"] / busy_us if busy_us else None,
            "span_aten_device_ms": {k: v / 1e3 for k, v in span_us.items()},
            "span_aten_launches": rp["span_launches"],
            "prefill_calls": n_pf,
@@ -812,10 +877,13 @@ def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
 # --------------------------------------------------------------------------- #
 # phase 5: greedy parity at full width, 4 layers, float32
 # --------------------------------------------------------------------------- #
-def phase_parity(torch, seed: int, cfg=None, tag: str = "5"):
+def phase_parity(torch, seed: int, cfg=None, tag: str = "5",
+                 capacity: int = 512, lens=None):
     """Greedy streams of the engine equal to an isolated prefill +
     decode_step loop of each request, float32, TF32 off: qwen3-8b at full
-    width cut to 4 layers (phase 5), or ``cfg`` (phase 7b)."""
+    width cut to 4 layers (phase 5), or ``cfg`` (phases 7b, 8b, 9b). Six
+    requests of 16-300 prompt and 8-24 output tokens, or ``lens``, a list
+    of (prompt, output) lengths."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model
@@ -828,17 +896,20 @@ def phase_parity(torch, seed: int, cfg=None, tag: str = "5"):
                                            param_dtype="float32")
     log(f"[{tag} parity] {cfg.name} full width, {cfg.num_layers} layers "
         f"(the only depth cut), float32, TF32 off")
-    eng = ServingEngine(cfg, max_batch=4, capacity=512, seed=seed,
+    eng = ServingEngine(cfg, max_batch=4, capacity=capacity, seed=seed,
                         device="cuda")
     rng = np.random.default_rng(seed + 7)
-    reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
-        0, cfg.vocab_size, int(rng.integers(16, 300)))],
-        params=SamplingParams(max_new_tokens=int(rng.integers(8, 24))))
-        for _ in range(6)]
+    reqs = []
+    for i in range(len(lens) if lens else 6):
+        n_prompt = lens[i][0] if lens else int(rng.integers(16, 300))
+        prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, n_prompt)]
+        n_out = lens[i][1] if lens else int(rng.integers(8, 24))
+        reqs.append(GenRequest(prompt=prompt,
+                               params=SamplingParams(max_new_tokens=n_out)))
     eng.run(reqs)
     for g in reqs:
         want = _isolated_greedy(torch, model, cfg, eng.params, g.prompt,
-                                g.params.max_new_tokens, capacity=512)
+                                g.params.max_new_tokens, capacity=capacity)
         if g.output != want:
             raise AssertionError(f"[{tag}] greedy parity: request {g.rid} "
                                  f"engine {g.output} != isolated {want}")
@@ -896,6 +967,64 @@ def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
                              f"launches for {decode_iters} decode "
                              f"iterations of {L} layers")
     return n
+
+
+def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
+                **kw) -> tuple:
+    """Build an engine of ``cfg`` on the card with seeded random weights,
+    warm it with one short request on a throwaway engine sharing them,
+    then serve ``reqs`` once, unsynchronised, with the launch counts and
+    the peak memory taken from zero. Checks every request complete, its
+    tokens in the vocabulary, the attention launches (flash a multiple of
+    the ``n_attn`` attention layers, the depth by default; decode
+    ``n_attn`` x decode iterations) and no blocking sync. Returns
+    (result, engine)."""
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+    L = cfg.num_layers
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in eng.params.values())
+    log(f"[{tag}] {cfg.name}: {L} layers ({n_attn or L} with attention), "
+        f"d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f}B params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card with "
+        f"the caches), init {time.monotonic() - t0:.1f}s")
+    warm = ServingEngine(cfg, eng.params, device="cuda", **kw)
+    warm.run([GenRequest(prompt=list(range(1, 65)),
+                         params=SamplingParams(max_new_tokens=4))])
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.monotonic()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _read_launches(tag, n_attn or L, eng.decode_iters)
+    for g in reqs:
+        if g.status != "completed" or \
+                len(g.output) != g.params.max_new_tokens:
+            raise AssertionError(f"[{tag}] request {g.rid} incomplete: "
+                                 f"{g.status} {len(g.output)}/"
+                                 f"{g.params.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in g.output):
+            raise AssertionError(f"[{tag}] request {g.rid}: token out of "
+                                 f"vocab")
+    if eng.n_blocking_syncs:
+        raise AssertionError(f"[{tag}] blocking syncs: {eng.sync_counts}")
+    toks = sum(len(g.output) for g in reqs)
+    res = {"card": smi, "wall_s": wall, "tokens": toks,
+           "tok_per_s": toks / wall, "decode_iters": eng.decode_iters,
+           "decode_dispatches": eng.n_decode_dispatches,
+           "mega_windows": eng.n_mega_windows,
+           "prefill_waves": eng.n_prefill_waves,
+           "prefill_chunks": eng.n_prefill_chunks,
+           "chunk_calls": eng.n_chunk_calls,
+           "prefill_shapes": sorted(eng._prefill_shapes),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sync_counts": dict(eng.sync_counts), "launches": launches}
+    return res, eng
 
 
 def phase_kv_roundtrip(torch, cfg, params, seed: int) -> dict:
@@ -1112,67 +1241,23 @@ def phase_zamba(torch, smi: str, seed: int) -> dict:
     run, then one under ``torch.profiler``."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
-    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
 
     cfg = get_config("zamba2_7b")
     n_inv = model.num_shared_invocations(cfg)
-    t0 = time.monotonic()
-    eng = ServingEngine(cfg, max_batch=8, capacity=2048, seed=seed,
-                        device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in eng.params.values())
-    log(f"[7a zamba2] {cfg.num_layers} Mamba2 layers, d {cfg.d_model}, "
-        f"{n_inv} shared-attention invocations (hd "
-        f"{cfg.resolved_head_dim}, {cfg.num_heads}/{cfg.num_kv_heads} "
-        f"heads), {n_params / 1e9:.3f}B params "
-        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), init "
-        f"{time.monotonic() - t0:.1f}s")
-    warm = ServingEngine(cfg, eng.params, max_batch=8, capacity=2048,
-                         seed=seed, device="cuda")
-    warm.run([GenRequest(prompt=list(range(1, 65)),
-                         params=SamplingParams(max_new_tokens=4))])
-    del warm
-    reqs = _workload(cfg, seed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    t0 = time.monotonic()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = _read_launches("7a", n_inv, eng.decode_iters)
-    for g in reqs:
-        if g.status != "completed" or \
-                len(g.output) != g.params.max_new_tokens:
-            raise AssertionError(f"[7a] request {g.rid} incomplete: "
-                                 f"{g.status} {len(g.output)}/"
-                                 f"{g.params.max_new_tokens}")
-        if not all(0 <= t < cfg.vocab_size for t in g.output):
-            raise AssertionError(f"[7a] request {g.rid}: token out of vocab")
-    if eng.n_blocking_syncs:
-        raise AssertionError(f"[7a] blocking syncs: {eng.sync_counts}")
-    toks = sum(len(g.output) for g in reqs)
-    res = {"card": smi, "wall_s": wall, "tokens": toks,
-           "tok_per_s": toks / wall, "decode_iters": eng.decode_iters,
-           "decode_dispatches": eng.n_decode_dispatches,
-           "mega_windows": eng.n_mega_windows,
-           "prefill_waves": eng.n_prefill_waves,
-           "prefill_chunks": eng.n_prefill_chunks,
-           "chunk_calls": eng.n_chunk_calls,
-           "prefill_shapes": len(eng._prefill_shapes),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "sync_counts": dict(eng.sync_counts), "launches": launches}
+    res, eng = _serve_full(torch, smi, cfg, "7a zamba2", _workload(cfg, seed),
+                           n_attn=n_inv, max_batch=8, capacity=2048,
+                           seed=seed)
     log(f"[7a zamba2] {json.dumps(res)}")
     params = eng.params
     del eng
-    res["profile"] = phase_profile(torch, cfg, params, seed, wall, "7a",
-                                   n_inv)
+    res["profile"] = phase_profile(torch, cfg, params, seed, res["wall_s"],
+                                   "7a", n_inv)
     p = res["profile"]
     log(f"[7a zamba2] {smi}: {res['tok_per_s']:.2f} tokens/s, device busy "
         f"{p['device_busy_s']} s, idle share {p['idle_share']}, decode "
         f"device ms/iter {p['decode_device_ms_per_iter']}, prefill device "
-        f"ms/call {p['prefill_device_ms_per_call']}, launches {launches}, "
-        f"peak {res['peak_mem_gb']:.2f} GB")
+        f"ms/call {p['prefill_device_ms_per_call']}, launches "
+        f"{res['launches']}, peak {res['peak_mem_gb']:.2f} GB")
     return res
 
 
@@ -1249,6 +1334,160 @@ def phase_xlstm(torch, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 8-10: MoE, ring caches, the embedding frontend
+# --------------------------------------------------------------------------- #
+def phase_moe(torch, smi: str, seed: int) -> dict:
+    """8a: phi3.5-MoE at its published widths (d 4096, 32/8 heads of 128,
+    16 experts of 6400, top-2, capacity factor 1.25, vocab 32064) cut to
+    24 of its 32 layers, bf16, seeded random weights, max_batch 8,
+    capacity 2048, default EngineConfig, on phase 4's workload: one
+    unsynchronised timed run, then one under ``torch.profiler`` (with the
+    MoE's share of device time)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("phi3_5_moe_42b").with_(num_layers=24)
+    res, eng = _serve_full(torch, smi, cfg, "8a moe", _workload(cfg, seed),
+                           max_batch=8, capacity=2048, seed=seed)
+    if eng.n_mega_windows <= 0:
+        raise AssertionError("[8a] no megastep window ran")
+    log(f"[8a moe] {json.dumps(res)}")
+    params = eng.params
+    del eng
+    res["profile"] = p = phase_profile(torch, cfg, params, seed,
+                                       res["wall_s"], "8a", cfg.num_layers)
+    log(f"[8a moe] {smi}: {res['tok_per_s']:.2f} tokens/s, peak "
+        f"{res['peak_mem_gb']:.2f} GB, device busy {p['device_busy_s']} s, "
+        f"idle share {p['idle_share']}, decode device ms/iter "
+        f"{p['decode_device_ms_per_iter']}, prefill device ms/call "
+        f"{p['prefill_device_ms_per_call']}, MoE share of device time "
+        f"{p['moe_share_of_busy']}")
+    return res
+
+
+def phase_moe_parity(torch, seed: int) -> dict:
+    """8b: phi3.5-MoE at full width cut to 4 layers, float32, TF32 off,
+    capacity factor 16 (= the experts, as the reference's own model tests
+    set it: nothing drops, so a stream cannot depend on its batch-mates),
+    through ``phase_parity``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("phi3_5_moe_42b").with_(
+        num_layers=4, capacity_factor=16.0, dtype="float32",
+        param_dtype="float32")
+    t0 = time.monotonic()
+    _zero_launches()
+    _, params = phase_parity(torch, seed, cfg, "8b")
+    del params
+    return {"seconds": time.monotonic() - t0,
+            "launches": _read_launches("8b", cfg.num_layers)}
+
+
+def _ring_workload(cfg, seed: int):
+    """Six prompts of 8400-12000 tokens, each longer than the window, with
+    32-64 greedy outputs."""
+    import numpy as np
+    from repro_torch.serving import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed + 17)
+    return [GenRequest(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(8400, 12001)))],
+        params=SamplingParams(max_new_tokens=int(rng.integers(32, 65))))
+        for _ in range(6)]
+
+
+def phase_ring(torch, smi: str, seed: int) -> dict:
+    """9a: mistral-nemo-12b at its published widths and depth (40 layers,
+    d 5120, 32/8 heads of 128, vocab 131072), bf16, with the reference's
+    long-context window of ``WINDOW`` tokens, seeded random weights,
+    max_batch 4, capacity 16384: the attention caches are rings of WINDOW
+    slots, every prompt is longer than the window (every seed rotates,
+    decode wraps), and chunks recompute their prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ATTN
+    cfg = get_config("mistral_nemo_12b").with_(sliding_window=WINDOW)
+    res, eng = _serve_full(torch, smi, cfg, "9a ring",
+                           _ring_workload(cfg, seed), max_batch=4,
+                           capacity=16384, seed=seed)
+    width = eng.caches[ATTN]["k"].shape[2]
+    if width != WINDOW or not eng._is_ring(ATTN) or eng.can_migrate_kv \
+            or eng._chunk_incremental:
+        raise AssertionError(f"[9a] cache rows {width} wide, ring "
+                             f"{eng._is_ring(ATTN)}, migrate "
+                             f"{eng.can_migrate_kv}, incremental chunks "
+                             f"{eng._chunk_incremental}")
+    res["cache_width"] = width
+    res["cache_gb"] = sum(t.numel() * t.element_size()
+                          for t in eng.caches[ATTN].values()) / 1e9
+    del eng
+    log(f"[9a ring] {json.dumps(res)}")
+    log(f"[9a ring] {smi}: {res['tok_per_s']:.2f} tokens/s, peak "
+        f"{res['peak_mem_gb']:.2f} GB, caches {res['cache_gb']:.2f} GB, "
+        f"launches {res['launches']}")
+    return res
+
+
+def phase_ring_parity(torch, seed: int) -> dict:
+    """9b: mistral-nemo-12b at full width cut to 4 layers, float32, TF32
+    off, window WINDOW, capacity 16384: two requests of 8300 and 8700
+    prompt tokens and 24 outputs through ``phase_parity`` (the isolated
+    loop's cache is window-clamped and seeded rotated)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mistral_nemo_12b").with_(
+        num_layers=4, sliding_window=WINDOW, dtype="float32",
+        param_dtype="float32")
+    t0 = time.monotonic()
+    _zero_launches()
+    _, params = phase_parity(torch, seed, cfg, "9b", capacity=16384,
+                             lens=[(8300, 24), (8700, 24)])
+    del params
+    return {"seconds": time.monotonic() - t0,
+            "launches": _read_launches("9b", cfg.num_layers)}
+
+
+def phase_embeds(torch, seed: int) -> dict:
+    """10: phi3-vision-4.2b at its published widths and depth (32 layers,
+    d 3072, MHA 32 heads of 96), float32, TF32 off: B = 2 requests of
+    1024 seeded frontend embeddings (x 0.02) and 128 tokens, prefilled,
+    seeded into a cache and decoded 8 steps at positions F+S+t; every
+    logit equals that of one prefill over embeds and all 136 tokens within
+    2e-3 (the reference's ``tests/test_models.py`` tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("phi3_vision_4_2b").with_(dtype="float32",
+                                               param_dtype="float32")
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(cfg, gen, "cuda")
+    B, F, S, T = 2, cfg.frontend_tokens, 128, 8
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=gen,
+                         device="cuda")
+    embeds = 0.02 * torch.randn(B, F, cfg.d_model, generator=gen,
+                                device="cuda")
+    _zero_launches()
+    full, _ = model.prefill(cfg, params, toks, embeds=embeds)
+    pf, caches = model.prefill(cfg, params, toks[:, :S], embeds=embeds)
+    errs = [(pf - full[:, :F + S]).abs().max().item()]
+    cache = model.init_cache(cfg, B, F + S + T, device="cuda")
+    model.seed_cache(cfg, cache, caches, F + S)
+    for t in range(T):
+        pos = torch.full((B,), F + S + t, dtype=torch.int32, device="cuda")
+        lg, _ = model.decode_step(cfg, params, toks[:, S + t:S + t + 1], pos,
+                                  cache)
+        errs.append((lg - full[:, F + S + t]).abs().max().item())
+    torch.cuda.synchronize()
+    launches = _read_launches("10", cfg.num_layers, T)
+    res = {"max_abs_err_prefill": errs[0], "max_abs_err_decode": max(errs[1:]),
+           "launches": launches, "seconds": time.monotonic() - t0}
+    if not all(math.isfinite(e) and e < 2e-3 for e in errs):
+        raise AssertionError(f"[10 embeds] logits differ from the full "
+                             f"prefill: {errs}")
+    log(f"[10 embeds] {cfg.name}: prefill over {F} embeddings + {S} tokens "
+        f"and {T} decode steps equal one prefill over all {F + S + T}: "
+        f"{json.dumps(res)}")
+    del params, cache, caches, full
+    return res
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1283,10 +1522,22 @@ def main(argv=None) -> int:
     zamba["parity"] = phase_zamba_parity(torch, args.seed)
     torch.cuda.empty_cache()
     phase_xlstm(torch, args.seed)
-    launches = {k: main["launches"][k] + fleet["launches"][k]
-                + zamba["launches"][k] for k in main["launches"]}
-    log(f"[7] launches: phase 4 {main['launches']}, phase 6 "
-        f"{fleet['launches']}, phase 7a {zamba['launches']}")
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, smi, args.seed)
+    torch.cuda.empty_cache()
+    moe["parity"] = phase_moe_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    ring = phase_ring(torch, smi, args.seed)
+    torch.cuda.empty_cache()
+    ring["parity"] = phase_ring_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    phase_embeds(torch, args.seed)
+    serving = {"4": main["launches"], "6": fleet["launches"],
+               "7a": zamba["launches"], "8a": moe["launches"],
+               "9a": ring["launches"]}
+    launches = {k: sum(n[k] for n in serving.values())
+                for k in ("flash_prefill", "paged_decode")}
+    log(f"[launches] by serving phase: {json.dumps(serving)}")
     record = {"kernels": [
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -1304,7 +1555,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/paged_attention.py:122",
          "launches": launches["paged_decode"],
          "combine_launches": main["paged_decode_combine_launches"]
-         + fleet["combine_launches"] + zamba["launches"]["combine"],
+         + fleet["combine_launches"] + sum(
+             serving[k]["combine"] for k in ("7a", "8a", "9a")),
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "share_of_bound")},

@@ -2,18 +2,22 @@
 ``repro.models.model``: attention (``A``), Mamba2 (``M``), mLSTM (``X``)
 and sLSTM (``S``) blocks in any order, and a Zamba2-style shared attention
 block applied after every ``shared_attention_every`` layers (one set of
-weights for every invocation). Parameters, caches, prefill, decode and
+weights for every invocation). An attention block's feed-forward is a
+dense SwiGLU, a top-k MoE (``moe.py``), or both summed (Arctic's dense
+residual). Prefill takes precomputed frontend embeddings (vision patches,
+audio frames) ahead of the tokens. Parameters, caches, prefill, decode and
 logits.
 
 Parameters live in a flat dict ``{name: tensor}``. The weights of the
 layers of one kind are stacked along a leading axis (n, ...), n the layers
 of that kind; the shared block is not stacked. Attention names carry no
-prefix (``wq``, ``attn_norm``, ...), the other kinds theirs (``mamba.``,
-``mlstm.``, ``slstm.``, ``shared.``). The forward passes are a Python loop
-over the pattern where the reference scans segments, each layer's weights
-a view into the stacked tensor. Caches are ``{kind: {leaf: tensor}}`` with
-leaves (n, B, ...) as the reference's ``init_cache``: K/V (n, B, C, K, hd)
-for ``A`` and ``"shared"``, the recurrent states for the other kinds.
+prefix (``wq``, ``attn_norm``, ...; a MoE's under ``moe.``), the other
+kinds theirs (``mamba.``, ``mlstm.``, ``slstm.``, ``shared.``). The forward
+passes are a Python loop over the pattern where the reference scans
+segments, each layer's weights a view into the stacked tensor. Caches are
+``{kind: {leaf: tensor}}`` with leaves (n, B, ...) as the reference's
+``init_cache``: K/V (n, B, C, K, hd) for ``A`` and ``"shared"``, the
+recurrent states for the other kinds.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import attention, mlp, ssm, xlstm
+from . import attention, mlp, moe, ssm, xlstm
 from .common import ParamMeta, ParamTree, init_params, rms_norm
 from .config import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 
@@ -30,13 +34,12 @@ Params = Dict[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-NEXT_ITEM = ("ROADMAP queue 1: MoE, embedding frontends and sliding-window "
-             "ring caches")
 
 # per-layer parameter names of an ATTN block (and of the shared block):
 # attention weights from ``attention.attn_params``, MLP weights from
-# ``mlp.mlp_params``
+# ``mlp.mlp_params``, MoE weights from ``moe.moe_params`` under ``MOE``
 ATTN_NORM, MLP_NORM = "attn_norm", "mlp_norm"
+MOE = "moe."
 PREFIX = {ATTN: "", MAMBA: "mamba.", MLSTM: "mlstm.", SLSTM: "slstm."}
 SHARED = "shared"
 KV_KINDS = (ATTN, SHARED)
@@ -44,13 +47,6 @@ RECURRENT_PREFILL = {MAMBA: ssm.ssm_prefill, MLSTM: xlstm.mlstm_prefill,
                      SLSTM: xlstm.slstm_prefill}
 RECURRENT_DECODE = {MAMBA: ssm.ssm_decode, MLSTM: xlstm.mlstm_decode,
                     SLSTM: xlstm.slstm_decode}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Every stack but MoE runs in this slice."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported yet ({NEXT_ITEM})")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -105,7 +101,10 @@ def _attn_block_tree(cfg: ModelConfig) -> ParamTree:
     t: ParamTree = {ATTN_NORM: ParamMeta((d,), init="ones")}
     t.update(attention.attn_params(cfg))
     t[MLP_NORM] = ParamMeta((d,), init="ones")
-    t.update(mlp.mlp_params(cfg))
+    if cfg.is_moe:
+        t.update({MOE + k: m for k, m in moe.moe_params(cfg).items()})
+    if not cfg.is_moe or cfg.moe_dense_residual:
+        t.update(mlp.mlp_params(cfg))
     return t
 
 
@@ -119,7 +118,6 @@ def _block_tree(cfg: ModelConfig, kind: str) -> ParamTree:
 
 
 def param_tree(cfg: ModelConfig) -> ParamTree:
-    check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     t: ParamTree = {"tok_embed": ParamMeta((v, d))}
     for kind, n in kind_counts(cfg).items():
@@ -169,7 +167,6 @@ def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                device=None) -> Cache:
     """Decode caches at a context capacity (window-clamped for ``A``)."""
-    check_supported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     kc = kind_counts(cfg)
     hd = cfg.resolved_head_dim
@@ -223,9 +220,14 @@ def seed_cache(cfg: ModelConfig, cache: Cache, prefill_caches: Cache,
 # --------------------------------------------------------------------------- #
 # forward passes
 # --------------------------------------------------------------------------- #
-def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
-          ) -> torch.Tensor:
-    return params["tok_embed"][tokens.long()].to(dtype_of(cfg.dtype))
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+          embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, with ``embeds`` (B,F,d) (a frontend's precomputed
+    patches or frames, cast to the activation dtype) ahead of them."""
+    x = params["tok_embed"][tokens.long()].to(dtype_of(cfg.dtype))
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def logits_fn(cfg: ModelConfig, params: Params, x: torch.Tensor
@@ -233,6 +235,21 @@ def logits_fn(cfg: ModelConfig, params: Params, x: torch.Tensor
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
+
+
+def _ffn(p, cfg, h):
+    """The feed-forward of an attention block: dense SwiGLU, a MoE, or
+    both summed (``moe_dense_residual``). The MoE's aux loss serves
+    training only and is dropped, as the reference's prefill drops it.
+    Under ``torch.profiler`` the MoE shows as the range ``model.moe``."""
+    if not cfg.is_moe:
+        return mlp.mlp_apply(p, h)
+    with torch.profiler.record_function("model.moe"):
+        y, _ = moe.moe_apply({k[len(MOE):]: v for k, v in p.items()
+                              if k.startswith(MOE)}, cfg, h)
+    if cfg.moe_dense_residual:
+        y = y + mlp.mlp_apply(p, h)
+    return y
 
 
 def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
@@ -249,7 +266,7 @@ def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
         prefix_len=prefix_len, prefix_positions=prefix_positions,
         prefix_segment_ids=prefix_segment_ids)
     x = x + y
-    x = x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    x = x + _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
     return x, {"k": k, "v": v}
 
 
@@ -257,7 +274,7 @@ def _attn_block_decode(p, cfg, x, pos, ck, cv, kv_heads, active):
     h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
     x = x + attention.attn_decode(p, cfg, h, pos, ck, cv, kv_heads=kv_heads,
                                   active=active)
-    return x + mlp.mlp_apply(p, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    return x + _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
 
 
 def _index(sub: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -269,17 +286,18 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None,
                    prefix_caches: Optional[Cache] = None, prefix_len=None,
                    prefix_positions: Optional[torch.Tensor] = None,
-                   prefix_segment_ids: Optional[torch.Tensor] = None
+                   prefix_segment_ids: Optional[torch.Tensor] = None,
+                   embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Cache]:
-    """The stack without the final norm and head: (hidden (B,S,d), caches
-    of this call: each layer's K/V (n,B,S,K,hd), or its recurrent state
-    at the end of the call). Arguments as ``prefill``."""
-    check_supported(cfg)
+    """The stack without the final norm and head: (hidden (B,F+S,d),
+    caches of this call: each layer's K/V (n,B,F+S,K,hd), or its recurrent
+    state at the end of the call). Arguments as ``prefill``."""
     kinds = set(cfg.pattern())
     n_inv = num_shared_invocations(cfg)
     if segment_ids is not None:
         assert kinds <= {ATTN} and not n_inv, \
             "token-packed prefill requires a pure-attention stack"
+        assert embeds is None, "packed prefill does not take extra embeds"
     if prefix_caches is not None:
         if kinds <= {ATTN} and not n_inv:
             assert positions is not None
@@ -295,7 +313,7 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 "chunk resume needs a pure-attention (kv prefix) or " \
                 "pure-recurrent (state snapshot) stack"
             assert segment_ids is None
-    x = embed(cfg, params, tokens)
+    x = embed(cfg, params, tokens, embeds)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -343,6 +361,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Returns (logits, caches of the call). ``last_only`` projects only
     the final position.
 
+    ``embeds`` (B,F,d): a frontend's precomputed embeddings, prepended to
+    the tokens' (positions 0..F+S-1, logits and caches over all F+S).
     Token-packed prefill (pure attention): ``segment_ids`` (B,S) plus
     ``positions`` that restart at 0 per segment. Chunked prefill over K/V
     (pure attention): ``prefix_caches`` (the request's seeded cache rows,
@@ -352,12 +372,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (B,C) instead. Recurrent chunked prefill (pure SSM/xLSTM stacks):
     ``prefix_caches`` carries the previous chunk's state snapshots (the
     shape this call returns), and the chunk continues the recurrence."""
-    if embeds is not None:
-        raise NotImplementedError(
-            f"embedding frontends are not ported yet ({NEXT_ITEM})")
     x, caches = prefill_hidden(cfg, params, tokens, positions, segment_ids,
                                prefix_caches, prefix_len, prefix_positions,
-                               prefix_segment_ids)
+                               prefix_segment_ids, embeds=embeds)
     if last_only:
         return logits_fn(cfg, params, x[:, -1]), caches
     return logits_fn(cfg, params, x), caches
@@ -382,7 +399,6 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """tokens (B,1); pos (B,) absolute positions. Updates ``caches`` in
     place (only rows where ``active``, when given: K/V writes and recurrent
     states alike) and returns (logits (B,V), caches)."""
-    check_supported(cfg)
     x = embed(cfg, params, tokens)
     done: Dict[str, int] = {}
     n_shared = 0

@@ -28,6 +28,12 @@ JAX_TO_PORT: Dict[str, str] = {
     "A/mlp/w_gate": "w_gate",
     "A/mlp/w_up": "w_up",
     "A/mlp/w_down": "w_down",
+    # a MoE block's experts and router (Arctic's dense residual beside them
+    # keeps the ``A/mlp/*`` names)
+    "A/moe/router": "moe.router",
+    "A/moe/w_gate": "moe.w_gate",
+    "A/moe/w_up": "moe.w_up",
+    "A/moe/w_down": "moe.w_down",
     "final_norm": "final_norm",
     "head": "head",
     # the recurrent kinds and the shared block, each under its own prefix.

@@ -19,7 +19,13 @@ sampling. Its hot path follows the reference's:
     ``packed_prefill=False`` as the equivalence reference. Stacks with
     recurrent blocks (Mamba2, xLSTM, Zamba2's hybrid) prefill each prompt
     at its exact shape instead: a pad token or a foreign segment would
-    fold into the recurrent state.
+    fold into the recurrent state. MoE stacks run every prefill and chunk
+    call at the reference's padded length (``_call_len``): their expert
+    capacity depends on it.
+  * Sliding-window stacks whose capacity reaches the window keep ring
+    caches of window slots: a prompt longer than the window seeds its last
+    window tokens at slot p mod window, decode wraps, chunks recompute their
+    prefix and no KV image leaves the engine.
   * Chunked prefill executes the scheduler's partial grants: one chunk runs
     over its slot's seeded cache prefix; a wave of >= 2 chunks runs as one
     packed call with per-segment prefix views. Pure-recurrent stacks carry
@@ -213,11 +219,6 @@ class ServingEngine:
                  variant: str = "full", rl_accuracy: float = 0.8,
                  seed: int = 0, engine_cfg: Optional[EngineConfig] = None,
                  device=None):
-        model.check_supported(cfg)
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window ring caches are not ported yet "
-                f"({model.NEXT_ITEM})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch
@@ -262,12 +263,15 @@ class ServingEngine:
         self._async = self.ecfg.async_decode
         self._packed = self.ecfg.packed_prefill and self._pad_prefill
         self._prefill_shapes: Set[Tuple[int, int]] = set()
-        # chunks attend over the seeded cache prefix (pure attention), or
+        # chunks attend over the seeded cache prefix (pure attention with
+        # non-ring caches: a ring prefix has no identity-placement view), or
         # carry the recurrent-state snapshot (pure-recurrent stacks), or
-        # recompute their whole prefix (hybrid stacks; and every stack when
-        # incremental_chunk_prefill is off)
+        # recompute their whole prefix (hybrid stacks, ring caches; and
+        # every stack when incremental_chunk_prefill is off)
+        win = cfg.sliding_window
         self._chunk_incremental = (self.ecfg.incremental_chunk_prefill
-                                   and self._pad_prefill)
+                                   and self._pad_prefill
+                                   and (win is None or capacity < win))
         self._chunk_packed = (self.ecfg.packed_chunk_prefill
                               and self._chunk_incremental and self._packed)
         self._chunk_rec = (self.ecfg.incremental_chunk_prefill
@@ -442,21 +446,53 @@ class ServingEngine:
         st["top_ks"][idx] = self._t(sel(top_ks), torch.int32)
         st["eos"][idx] = self._t(sel(eos), torch.int32)
 
-    def _write_rows(self, src: Dict[str, Dict[str, torch.Tensor]], slot_idx,
-                    pos_idx, src_idx) -> None:
-        """One in-place scatter per K/V cache leaf: cache[:, slot_idx[i],
-        pos_idx[i]] = src[:, src_idx[i]] with src leaves (n, N, K, hd). The
-        index arrays hold real tokens only (pad rows and pad positions were
-        dropped on the host)."""
-        si = self._t(slot_idx, torch.long)
-        pi = self._t(pos_idx, torch.long)
-        ri = self._t(src_idx, torch.long)
+    def _is_ring(self, kind: str) -> bool:
+        """A cache row is a sliding-window ring buffer when its capacity
+        equals the window (shared-attention caches are always full size)."""
+        win = self.cfg.sliding_window
+        return (kind == ATTN and win is not None
+                and self.caches[kind]["k"].shape[2] == win)
+
+    def _write_rows(self, src: Dict[str, Dict[str, torch.Tensor]],
+                    spans) -> None:
+        """One in-place scatter per K/V cache leaf, with src leaves
+        (n, N, K, hd). ``spans`` holds (slot, start, length, offset) for the
+        real tokens only (pad rows and pad positions are dropped on the
+        host): token j of a span is at absolute position start + j and at
+        src index offset + j. A C-slot cache holds position p at slot p;
+        a ring (``_is_ring``) keeps each span's last C positions, at slot
+        p mod C (the reference's ``_ring_index``). The index arrays are
+        built from host lengths: no device read."""
         for kind in model.KV_KINDS:
             if kind not in self.caches:
                 continue
+            C = self.caches[kind]["k"].shape[2]
+            ring = self._is_ring(kind)
+            si, pi, ri = [], [], []
+            for slot, start, L, off in spans:
+                p = np.arange(max(start, start + L - C) if ring else start,
+                              start + L)
+                si.append(np.full(p.size, slot))
+                pi.append(p % C if ring else p)
+                ri.append(off + p - start)
+            si, pi, ri = (self._t(np.concatenate(a), torch.long)
+                          for a in (si, pi, ri))
             for n in ("k", "v"):
                 dst = self.caches[kind][n]
                 dst[:, si, pi] = src[kind][n][:, ri].to(dst.dtype)
+
+    def _call_len(self, n: int, room: Optional[int] = None) -> int:
+        """Token count of a prefill or chunk call of ``n`` real tokens: n
+        (exact shapes), or for a MoE stack the reference's padded length
+        (``seq_bucket(n)``, capped at ``room`` cache slots where the
+        reference caps it). A MoE's expert capacity grows with the call's
+        token count (``moe.capacity``), so an exact-length call would drop
+        tokens the reference keeps. Pad tokens follow the real ones, so
+        only their count reaches the real tokens' routing."""
+        if not self.cfg.is_moe:
+            return n
+        b = seq_bucket(n)
+        return b if room is None or b <= room else max(n, room)
 
     def _prefill_packed(self, toks, pos, seg, last_idx):
         """Token-packed prefill: toks/pos/seg (1, T). Only the rows at
@@ -483,20 +519,14 @@ class ServingEngine:
 
     def _seed_packed(self, pf_caches, slots, starts, lens) -> None:
         """Seed decode caches from a token-packed prefill: item i's span
-        [starts[i], starts[i] + lens[i]) of the packed axis lands at cache
-        positions [0, lens[i]) of its slot. Cache slots past a row's length
+        [starts[i], starts[i] + lens[i]) of the packed axis holds positions
+        [0, lens[i]) of its slot's row. Cache slots past a row's length
         keep stale values that decode masking never reads (the reference
         fills them with copies of the last token, equally unread)."""
-        si, pi, ri = [], [], []
-        for s, st, L in zip(slots, starts, lens):
-            if s >= self.max_batch:
-                continue              # pad row
-            si.append(np.full(L, s))
-            pi.append(np.arange(L))
-            ri.append(st + np.arange(L))
         src = {ATTN: {n: pf_caches[ATTN][n][:, 0] for n in ("k", "v")}}
-        self._write_rows(src, np.concatenate(si), np.concatenate(pi),
-                         np.concatenate(ri))
+        self._write_rows(src, [(s, 0, L, st) for s, st, L
+                               in zip(slots, starts, lens)
+                               if s < self.max_batch])
 
     def _seed(self, pf_caches, slots, lens) -> None:
         """Seed decode caches from a prefill batch: K/V leaves
@@ -510,9 +540,7 @@ class ServingEngine:
             self._write_rows(
                 {kind: {n: pf_caches[kind][n].flatten(1, 2)
                         for n in ("k", "v")} for kind in kv},
-                np.concatenate([np.full(lens[i], slots[i]) for i in keep]),
-                np.concatenate([np.arange(lens[i]) for i in keep]),
-                np.concatenate([i * S + np.arange(lens[i]) for i in keep]))
+                [(slots[i], 0, lens[i], i * S) for i in keep])
         rows = self._t([slots[i] for i in keep], torch.long)
         ri = self._t(keep, torch.long)
         for kind, sub in self.caches.items():
@@ -535,8 +563,8 @@ class ServingEngine:
         last = model.logits_fn(self.cfg, self.params, x[0, length - 1])
         for nm in ("k", "v"):
             dst = self.caches[ATTN][nm]
-            dst[:, slot, start:start + length] = pf[ATTN][nm][:, 0].to(
-                dst.dtype)
+            dst[:, slot, start:start + length] = \
+                pf[ATTN][nm][:, 0, :length].to(dst.dtype)
         return last
 
     def _chunks_packed(self, toks, pos, seg, ppos, pseg, slots, last_idx,
@@ -562,11 +590,9 @@ class ServingEngine:
             prefix_segment_ids=self._t(pseg, torch.int32))
         last = model.logits_fn(self.cfg, self.params,
                                x[0, self._t(last_idx, torch.long)])
-        si = np.concatenate([np.full(L, s) for s, L in zip(slots, lens)])
-        pi = np.concatenate([s + np.arange(L) for s, L in zip(starts, lens)])
-        ri = np.concatenate([o + np.arange(L) for o, L in zip(offs, lens)])
         self._write_rows({ATTN: {nm: pf[ATTN][nm][:, 0]
-                                 for nm in ("k", "v")}}, si, pi, ri)
+                                 for nm in ("k", "v")}},
+                         list(zip(slots, starts, lens, offs)))
         return last
 
     def _inject_seed(self, kv: dict, slot: int, ctx: int) -> None:
@@ -695,8 +721,10 @@ class ServingEngine:
     def can_migrate_kv(self) -> bool:
         """A portable KV image needs identity cache placement: an
         attention-pure stack (recurrent states are not positionally
-        addressable the same way). Sliding-window rings are not ported."""
-        return self._pad_prefill
+        addressable the same way) and non-ring caches (a sliding-window
+        ring's layout depends on this engine's capacity)."""
+        win = self.cfg.sliding_window
+        return self._pad_prefill and (win is None or self.capacity < win)
 
     def _capture_kv(self, slot: int, ctx: int) -> dict:
         """Copy one slot's first ``ctx`` cache positions to CPU tensors
@@ -1000,8 +1028,9 @@ class ServingEngine:
                 off += lens_true[i]
                 last_idx[i] = off - 1
             # exact length: eager execution has no compile count to bound,
-            # so the reference's pow2 round-up of T would only add work
-            T = off
+            # so the reference's pow2 round-up of T would only add work;
+            # but a MoE stack takes the reference's shape (``_call_len``)
+            T = self._call_len(off)
             toks = np.zeros((1, T), np.int64)
             pos = np.zeros((1, T), np.int32)
             seg = np.full((1, T), -1, np.int32)
@@ -1177,6 +1206,10 @@ class ServingEngine:
                                                          self.capacity)
         toks = np.concatenate([ctx[start:end] for _, ctx, start, end, _, _
                                in infos]).astype(np.int64)[None]
+        pad = self._call_len(toks.shape[1]) - toks.shape[1]
+        if pad:                      # pad tokens: token 0, pos 0, seg -1
+            toks, pos = (np.pad(a, ((0, 0), (0, pad))) for a in (toks, pos))
+            seg = np.pad(seg, ((0, 0), (0, pad)), constant_values=-1)
         last_idx = (offs + np.asarray(lens) - 1).astype(np.int32)
         slots = [i[4] for i in infos]
         self._prefill_shapes.add(toks.shape)
@@ -1190,11 +1223,14 @@ class ServingEngine:
     def _exec_chunk_incremental(self, ctx, start: int, end: int,
                                 slot: int):
         """Run ctx[start:end) as a prefix-attending chunk and seed its K/V
-        into the slot's cache row (exact length: no pow2 round-up)."""
+        into the slot's cache row (exact length: no pow2 round-up, but for
+        a MoE stack; its pad tokens continue the positions)."""
         L = end - start
-        toks = np.asarray([ctx[start:end]], np.int64)
-        pos = (start + np.arange(L, dtype=np.int32))[None]
-        self._prefill_shapes.add((1, L))
+        Sb = self._call_len(L, self.capacity - start)
+        toks = np.zeros((1, Sb), np.int64)
+        toks[0, :L] = ctx[start:end]
+        pos = (start + np.arange(Sb, dtype=np.int32))[None]
+        self._prefill_shapes.add((1, Sb))
         return self._chunk_prefill(toks, pos, slot, start, L)
 
     def _exec_chunk_state(self, ctx, start: int, end: int, rid: int):
@@ -1212,13 +1248,14 @@ class ServingEngine:
         return model.logits_fn(self.cfg, self.params, x[0, L - 1])
 
     def _exec_chunk_recompute(self, ctx, end: int, slot: int):
-        """Chunk fallback with no resumable prefix (hybrid stacks, or
-        ``incremental_chunk_prefill=False``): re-run positions [0, end) and
-        reseed the whole cache row. Exact length for every stack (the
-        reference pads attention-pure ones to a pow2 bucket only to bound
-        XLA's compiles)."""
-        toks = np.asarray([ctx[:end]], np.int64)
-        self._prefill_shapes.add((1, end))
+        """Chunk fallback with no resumable prefix (hybrid stacks, ring
+        caches, or ``incremental_chunk_prefill=False``): re-run positions
+        [0, end) and reseed the whole cache row. Exact length for every
+        stack but MoE (the reference pads attention-pure ones to a pow2
+        bucket only to bound XLA's compiles)."""
+        toks = np.zeros((1, self._call_len(end, self.capacity)), np.int64)
+        toks[0, :end] = ctx[:end]
+        self._prefill_shapes.add(toks.shape)
         last, pf_caches = self._prefill(toks, [end])
         self._seed(pf_caches, [slot], [end])
         return last[0]

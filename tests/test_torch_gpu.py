@@ -169,6 +169,83 @@ def test_zamba2_engine_on_the_card_matches_the_cpu(card):
     assert gpu.sync_counts == cpu.sync_counts
 
 
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "mistral_nemo_12b"],
+                         ids=["moe", "ring"])
+def test_moe_and_ring_engines_on_the_card_match_the_cpu(card, arch):
+    """phi3.5-MoE reduced (padded MoE calls) and mistral-nemo reduced with
+    a 64-token window (ring caches: prompts past the window, decode
+    wrapping, recomputed chunks), float32, TF32 off: the engine on the
+    card gives the CPU engine's greedy streams, completion times and
+    counters on the same weights."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models.config import ATTN
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+    cfg = get_config(arch).reduced().with_(dtype="float32",
+                                           param_dtype="float32")
+    lo, hi = 8, 120
+    if arch == "mistral_nemo_12b":
+        cfg, lo, hi = cfg.with_(sliding_window=64), 70, 150
+    scfg = dict(kvc_tokens=4 * 192, block_size=16, tfs=48,
+                max_model_len=192, max_batch_reqs=4)
+
+    def run(device, params=None):
+        eng = ServingEngine(cfg, params, max_batch=4, capacity=192,
+                            rl_accuracy=1.0, device=device,
+                            scheduler_cfg=SchedulerConfig(**scfg))
+        rng = np.random.default_rng(3)
+        reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(lo, hi)))],
+            params=SamplingParams(max_new_tokens=int(rng.integers(6, 30))))
+            for _ in range(6)]
+        eng.run(reqs)
+        return eng, [(g.output, g.t_done) for g in reqs]
+
+    flash_attention.launches = paged_decode_attention.launches = 0
+    gpu, got = run("cuda")
+    assert flash_attention.launches > 0
+    assert paged_decode_attention.launches == cfg.num_layers * \
+        gpu.decode_iters
+    cpu, want = run("cpu", {k: t.cpu() for k, t in gpu.params.items()})
+    assert got == want
+    assert gpu.n_prefill_chunks == cpu.n_prefill_chunks > 0
+    assert gpu.sync_counts == cpu.sync_counts
+    assert gpu._is_ring(ATTN) == (cfg.sliding_window is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["window-prefill", "ring-decode",
+                                  "vision-prefill"])
+def test_new_serving_shapes_match_plain(card, dtype, case):
+    """The shapes this slice's serving paths give the kernels:
+    mistral-nemo's prefill of a 10240-token prompt under its 8192 window
+    (G = 4), decode over four full 8192-slot rings (H 32, K 8), and
+    phi3-vision's causal prefill of 1024 patches and 128 tokens (MHA at
+    hd 96, B = 2)."""
+    g = card
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    if case == "ring-decode":
+        B, C, H, K, hd = 4, 8192, 32, 8, 128
+        q, ck, cv = rnd(B, H, hd), rnd(B, C, K, hd), rnd(B, C, K, hd)
+        ctx = torch.full((B,), C, dtype=torch.int32, device="cuda")
+        ps = ops.page_size(C)
+        bt = torch.arange(B * C // ps, device="cuda").reshape(B, -1).int()
+        want = ref.paged_decode_attention(q, ck.view(-1, ps, K, hd),
+                                          cv.view(-1, ps, K, hd), bt, ctx)
+        _close(ops.decode_attention(q, ck, cv, ctx), want, dtype)
+        return
+    if case == "window-prefill":
+        shape_q, shape_kv, kw = (1, 10240, 32, 128), (1, 10240, 8, 128), \
+            dict(window=8192)
+    else:
+        shape_q = shape_kv = (2, 1152, 32, 96)
+        kw = {}
+    q, k, v = rnd(*shape_q), rnd(*shape_kv), rnd(*shape_kv)
+    _close(flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw),
+           dtype)
+
+
 def test_wrappers_refuse_unsupported_inputs(card):
     q = torch.zeros(1, 16, 2, 48, device="cuda")          # hd 48
     with pytest.raises(ValueError):

@@ -14,7 +14,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels.ref import POS_INVALID  # noqa: E402
 from repro_torch.models import attention, common, model  # noqa: E402
 from repro_torch.models.weights import (  # noqa: E402
@@ -276,29 +276,32 @@ def test_greedy_stream_matches_reference(cfgs, weights, seed):
                                                             prompt, 10)
 
 
-def test_other_layer_kinds_raise():
-    """MoE, embedding frontends and sliding-window caches (in the engine)
-    still raise, naming the next ROADMAP item; the recurrent and hybrid
-    stacks now build."""
-    from repro_torch.serving import ServingEngine
-    item = "MoE, embedding frontends and sliding-window ring caches"
-    with pytest.raises(NotImplementedError, match=item):
-        model.param_tree(get_config("phi3_5_moe_42b").reduced())
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(get_config("qwen3_8b").reduced().with_(
-            sliding_window=64, **F32), device="cpu")
-    cfg = get_config("phi3_vision_4_2b").reduced().with_(**F32)
+@pytest.mark.parametrize("arch", list_archs(include_paper_model=True))
+def test_every_config_builds(arch):
+    """Every config in the registry builds in the port, reduced: its
+    parameter tree, seeded init, decode caches (the reference's leaves and
+    shapes) and a prefill (with frontend embeddings where it has a
+    frontend); the weight bridge maps every path of the reference's tree
+    onto the port's names and shapes."""
+    jcfg = jax_config(arch).reduced().with_(**F32)
+    cfg = get_config(arch).reduced().with_(**F32)
+    tree, jtree = model.param_tree(cfg), jmodel.param_tree(jcfg)
+    assert set(jtree) <= set(JAX_TO_PORT)
+    assert {JAX_TO_PORT[k] for k in jtree} == set(tree)
+    for path, meta in jtree.items():
+        assert tree[JAX_TO_PORT[path]].shape == tuple(meta.shape), path
     p = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        model.prefill(cfg, p, torch.zeros((1, 4), dtype=torch.long),
-                      embeds=torch.zeros((1, 2, cfg.d_model)))
-    for arch, kinds in (("xlstm_125m", {"X", "S"}), ("zamba2_7b", {"M"})):
-        cfg = get_config(arch).reduced().with_(**F32)
-        p = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        assert set(p) == set(model.param_tree(cfg))
-        cache = model.init_cache(cfg, 2, 32)
-        assert kinds <= set(cache)
-        logits, _ = model.prefill(cfg, p, torch.zeros((2, 5),
-                                                      dtype=torch.long),
-                                  last_only=True)
-        assert logits.shape == (2, cfg.vocab_size)
+    assert {k: tuple(v.shape) for k, v in p.items()} == {
+        k: m.shape for k, m in tree.items()}
+    cache = model.init_cache(cfg, 2, 32)
+    jcache = jmodel.init_cache(jcfg, 2, 32)
+    assert {kind: {n: tuple(a.shape) for n, a in sub.items()}
+            for kind, sub in cache.items()} == {
+        kind: {n: tuple(a.shape) for n, a in sub.items()}
+        for kind, sub in jcache.items()}
+    F = cfg.frontend_tokens if cfg.frontend else 0
+    embeds = torch.zeros((2, F, cfg.d_model)) if F else None
+    logits, _ = model.prefill(cfg, p, torch.zeros((2, 5), dtype=torch.long),
+                              embeds=embeds)
+    assert logits.shape == (2, F + 5, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
