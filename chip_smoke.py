@@ -1,7 +1,8 @@
 """Card smoke test of the PyTorch port: build, check and time the CUDA
 kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE and mistral-nemo-12b
-(sliding-window ring caches) at full width through ``ServingEngine`` and
-run phi3-vision's embedding-frontend prefill.
+(sliding-window ring caches) at full width through ``ServingEngine``, run
+phi3-vision's embedding-frontend prefill, and train qwen3-8b at full width
+through ``repro_torch.training``.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -35,6 +36,10 @@ Phases (any failure raises and exits non-zero):
      decode iteration and the idle share (one pass over the raw events);
   5. greedy parity: full width cut to 4 layers, float32, TF32 off: the
      engine's greedy streams equal an isolated prefill + decode_step loop;
+     5b: with CUDA's Philox generator, megastep windows (K=8) that EOS cuts
+     short, or that run on past their last sampling row's EOS, leave the
+     sampled streams, completion times, scheduler decisions and generator
+     state of K=1 (reduced qwen3, the reference's pressure workload);
   6. KV migration and the fleet (``repro_torch.cluster``), sharing the
      weights of phases 4 and 5:
      a. full width, bf16: a ~1500-token request prefilled on engine A,
@@ -89,7 +94,16 @@ Phases (any failure raises and exits non-zero):
  10. phi3-vision-4.2b at its published widths and depth, float32: a
      prefill over 1024 frontend embeddings and 128 tokens (B = 2), seeded
      into a cache, and 8 decode steps equal one prefill over the whole
-     sequence within 2e-3.
+     sequence within 2e-3;
+ 11. training:
+     a. qwen3-8b at its published widths cut to 12 of 36 layers, bf16
+        params, float32 AdamW moments, remat, batch 1 x 4096 tokens (the
+        streaming flash attention), 20 steps on the synthetic data: the
+        loss falls; median step ms, tokens/s, peak memory, the model-FLOPs
+        share, and one profiled step (device busy, idle share, GEMMs);
+     b. one float32 train step (TF32 off) of qwen3-8b at full width cut to
+        2 layers at S = 2304 on the card and on the CPU from the same
+        weights and batch: loss, every grad and every updated param.
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
 7a, 8a and 9a; the top-level times are the zamba2 shapes, every timed
@@ -937,6 +951,100 @@ def _isolated_greedy(torch, model, cfg, params, prompt, n, capacity):
 
 
 # --------------------------------------------------------------------------- #
+# phase 5b: the sampling generator across megastep windows cut by EOS
+# --------------------------------------------------------------------------- #
+def _rng_engine_run(torch, cfg, params, K: int, eos, seed: int):
+    """``tests/test_torch_engine_rng.py``'s run on the card: the
+    KVC-saturated pressure workload (12 requests of 16 prompt and 112
+    output tokens, every third at temperature 1.3 with top-k 4). Returns
+    (fingerprint, the windows that EOS cut short while a row sampled or
+    that ran on after their last sampling row's EOS, engine)."""
+    import numpy as np
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving import (EngineConfig, GenRequest, SamplingParams,
+                                     ServingEngine)
+    eng = ServingEngine(
+        cfg, params, max_batch=8, capacity=256, rl_accuracy=1.0, seed=seed,
+        scheduler_cfg=SchedulerConfig(
+            kvc_tokens=512, block_size=16, tfs=256, max_model_len=256,
+            max_batch_reqs=8, reserve_frac=0.0, pad_ratio=0.0, bucket=16),
+        engine_cfg=EngineConfig(decode_megastep=K), device="cuda")
+    cuts, mega = [], eng._mega_fn
+
+    def spy(active, k_iters, need_sample, need_topk, stop_on_eos):
+        out = mega(active, k_iters, need_sample, need_topk, stop_on_eos)
+        if need_sample:
+            act = active.cpu().numpy()
+            flags = out[1][:k_iters].cpu().numpy()
+            if stop_on_eos:         # cut short at the first EOS
+                seen = flags[:-1, act].any()
+            else:                   # ran on past the last sampling EOS
+                samp = flags[:, act & (eng.temps > 0)]
+                seen = samp.any(axis=0).all() \
+                    and samp.argmax(axis=0).max() < k_iters - 1
+            if seen:
+                cuts.append(eng.decode_iters)
+        return out
+
+    eng._mega_fn = spy
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(
+        prompt=[int(t) for t in rng.integers(0, cfg.vocab_size, 16)],
+        params=SamplingParams(max_new_tokens=112,
+                              temperature=1.3 if i % 3 == 0 else 0.0,
+                              top_k=4 if i % 3 == 0 else 0, eos_token=eos))
+        for i in range(12)]
+    eng.run(reqs)
+    s = eng.scheduler
+    fp = ([(g.rid, tuple(g.output), g.t_done) for g in reqs],
+          tuple(s.iter_completion_counts),
+          tuple((r.rid, r.t_complete, r.generated, r.n_preemptions)
+                for r in s.completed),
+          s.n_preempt_free, s.n_preempt_swap, s.n_underprov, s.n_hosted)
+    return fp, cuts, eng
+
+
+def phase_rng_windows(torch, seed: int) -> dict:
+    """5b: with CUDA's Philox generator, a megastep window (K=8) that EOS
+    cuts short while a row samples, or that runs on after its last
+    sampling row's EOS, leaves the generator where the K=1 path's single
+    iterations leave it: equal sampled streams, completion times and
+    scheduler decisions, and equal generator states at the end.
+    Reduced qwen3 (1 layer, d 64), float32, seeded weights; EOS is the
+    first greedy stream's token at 30% and at 70% of its length."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config("qwen3_8b").reduced(layers=1).with_(
+        d_model=64, num_heads=2, num_kv_heads=2, head_dim=32, d_ff=256,
+        vocab_size=256, dtype="float32", param_dtype="float32")
+    params = model.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    t0 = time.monotonic()
+    (probe, *_), _, _ = _rng_engine_run(torch, cfg, params, 1, None, seed)
+    greedy = probe[1][1]
+    res = {}
+    for frac in (0.3, 0.7):
+        eos = greedy[int(len(greedy) * frac)]
+        fp1, _, e1 = _rng_engine_run(torch, cfg, params, 1, eos, seed)
+        fp8, cuts, e8 = _rng_engine_run(torch, cfg, params, 8, eos, seed)
+        if not cuts:
+            raise AssertionError(f"[5b rng] EOS {eos}: no window was cut "
+                                 f"short, or ran on past its last "
+                                 f"sampling row, while a row sampled")
+        if fp8 != fp1 or not torch.equal(e8.gen.get_state(),
+                                         e1.gen.get_state()):
+            raise AssertionError(f"[5b rng] EOS {eos}: the K=8 engine's "
+                                 f"fingerprint or generator differs from "
+                                 f"K=1's")
+        res[eos] = {"windows": len(cuts), "decode_iters": e8.decode_iters,
+                    "dispatches_k8": e8.n_decode_dispatches}
+    log(f"[5b rng] K=8 equals K=1 (sampled streams, t_done, decisions, "
+        f"generator state) on the card: {json.dumps(res)} "
+        f"({time.monotonic() - t0:.1f}s)")
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # phase 6: KV migration and the fleet
 # --------------------------------------------------------------------------- #
 def _zero_launches() -> None:
@@ -1488,6 +1596,156 @@ def phase_embeds(torch, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 11: training
+# --------------------------------------------------------------------------- #
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 12, 4096, 20
+
+
+def phase_train(torch, smi: str, seed: int) -> dict:
+    """11a: qwen3-8b at its published widths cut to 12 of 36 layers, bf16
+    params, float32 AdamW moments, remat, trained 20 steps at batch 1 and
+    S = 4096 (the streaming flash attention) on ``SyntheticDataset(seed)``
+    through ``repro_torch.training.train_loop.train``. The loss must fall
+    (the mean of the last 5 below that of the first 5). Prints the median
+    step ms over steps 5-19, tokens/s, peak memory and the model-FLOPs
+    share of the bf16 peak (6 x the matmul weights x the tokens, plus the
+    causal attention's 6 L H hd S^2 B; the remat recompute is not
+    counted); then one more step under ``torch.profiler``: device busy,
+    its idle share against the median step, and the GEMMs' share."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = get_config("qwen3_8b").with_(num_layers=TRAIN_LAYERS)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5)
+    log(f"[11a train] {cfg.name} full width, {cfg.num_layers} of 36 layers, "
+        f"params {cfg.param_dtype}, moments {opt.state_dtype}, remat "
+        f"{cfg.remat}, batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+
+    def on_step(i, m):
+        stamps.append(time.monotonic())
+        losses.append(m["loss"])
+        log(f"[11a train] step {i:2d} loss {m['loss']:.4f} gnorm "
+            f"{m['grad_norm']:.4f}")
+
+    t0 = time.monotonic()
+    params, state, _ = train_loop.train(
+        cfg, TRAIN_STEPS, opt=opt, batch_size=1, seq_len=TRAIN_SEQ,
+        seed=seed, log_every=1, callback=on_step, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    med_ms = statistics.median(step_ms[4:])         # steps 5..19
+    first, last = (statistics.fmean(losses[:5]),
+                   statistics.fmean(losses[-5:]))
+    if not (all(map(math.isfinite, losses)) and last < first):
+        raise AssertionError(f"[11a train] the loss did not fall: {losses}")
+    n_params = sum(p.numel() for p in params.values())
+    n_matmul = n_params - params["tok_embed"].numel()
+    T = TRAIN_SEQ
+    flops = 6 * n_matmul * T + 6 * cfg.num_layers * cfg.num_heads \
+        * cfg.resolved_head_dim * T * T
+    res = {"card": smi, "params": n_params, "matmul_params": n_matmul,
+           "first_step_s_with_init": stamps[0] - t0,
+           "median_step_ms": med_ms, "step_ms": step_ms,
+           "tokens_per_s": T / (med_ms / 1e3),
+           "peak_mem_gb": peak / 1e9, "model_flops_per_step": flops,
+           "mfu": flops / (med_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+           "loss_first5": first, "loss_last5": last, "losses": losses}
+    batch = train_loop.batch_to(next(SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=T, batch_size=1,
+        seed=seed + 1)).batches()), cfg, "cuda")
+    step = train_loop.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    res["profiled_step_ms"] = 1e3 * (time.monotonic() - t1)
+    rp = read_profile(prof)
+    del prof
+    groups = rp["groups"]
+    res["kernel_launches"] = sum(rp["group_launches"].values())
+    busy = sum(groups.values()) / 1e3
+    if busy > 0.0:
+        res.update(device_busy_ms=busy, idle_share=1.0 - busy / med_ms,
+                   gemm_share=groups["gemm"] / 1e3 / busy)
+    else:
+        log("[11a train] the profiler recorded no device time: device busy "
+            "and idle share not measured")
+    log(f"[11a train] {json.dumps(res)}")
+    for us, n, key in rp["top"]:
+        log(f"[11a profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
+    del params, state, batch
+    return res
+
+
+def phase_train_parity(torch, seed: int) -> dict:
+    """11b: one train step of qwen3-8b at full width cut to 2 layers,
+    float32, TF32 off, at S = 2304 (above ``FLASH_THRESHOLD``, so
+    training's streaming flash attention runs, over a padded last block),
+    on the card and on the CPU from the same weights and batch; the CPU
+    run is the one the CPU tests hold against the reference. The step is
+    ``make_train_step``'s two halves: ``make_grad_fn`` (loss within 1e-5
+    relative, every grad within 1e-4 x max|g| of the CPU's leaf), then
+    ``apply_updates`` on each device from the CPU's grads (every updated
+    param within 1e-5). AdamW's first step moves a param by
+    lr * g / (|g| + eps), which turns a grad difference d near g = 0 into
+    up to lr / eps * d of param (12000 d here), so the update is held on
+    equal grads and the grads on their own."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
+                                                init_state)
+    from repro_torch.training.train_loop import batch_to, make_grad_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen3_8b").with_(num_layers=2, dtype="float32",
+                                       param_dtype="float32")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5)
+    S = 2304
+    batch = next(SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=1,
+        seed=seed)).batches())
+    card = model.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                      "cuda")
+    cpu = {k: p.cpu() for k, p in card.items()}
+    grad_fn = make_grad_fn(cfg)
+    t0 = time.monotonic()
+    l_gpu, _, g_gpu = grad_fn(card, batch_to(batch, cfg, "cuda"))
+    l_gpu = float(l_gpu)
+    t1 = time.monotonic()
+    l_cpu, _, g_cpu = grad_fn(cpu, batch_to(batch, cfg, "cpu"))
+    l_cpu = float(l_cpu)
+    t2 = time.monotonic()
+    grad_err = max(float((g_gpu[k].cpu() - g).abs().max())
+                   / float(g.abs().max()) for k, g in g_cpu.items())
+    del g_gpu
+    apply_updates(card, {k: g.cuda() for k, g in g_cpu.items()},
+                  init_state(card, opt), opt)
+    apply_updates(cpu, g_cpu, init_state(cpu, opt), opt)
+    param_err = max(float((card[k].detach().cpu() - p.detach()).abs().max())
+                    for k, p in cpu.items())
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+           "grad_err_share_of_max": grad_err, "param_max_abs_err": param_err,
+           "card_grad_s": t1 - t0, "cpu_grad_s": t2 - t1,
+           "update_s": time.monotonic() - t2}
+    log(f"[11b train parity] {json.dumps(res)}")
+    if not (loss_rel <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-5):
+        raise AssertionError(f"[11b train parity] the card's step differs "
+                             f"from the CPU's: {res}")
+    del card, cpu, g_cpu
+    return res
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1514,6 +1772,7 @@ def main(argv=None) -> int:
     main, params = phase_main_path(torch, args.seed)
     # phase 6d takes phase 5's weights, which are freed before 6a-6c
     chaos = phase_chaos(torch, *phase_parity(torch, args.seed), args.seed)
+    phase_rng_windows(torch, args.seed)
     fleet = phase_fleet(torch, smi, params, chaos, args.seed)
     del params
     torch.cuda.empty_cache()
@@ -1532,6 +1791,10 @@ def main(argv=None) -> int:
     ring["parity"] = phase_ring_parity(torch, args.seed)
     torch.cuda.empty_cache()
     phase_embeds(torch, args.seed)
+    torch.cuda.empty_cache()
+    phase_train(torch, smi, args.seed)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, args.seed)
     serving = {"4": main["launches"], "6": fleet["launches"],
                "7a": zamba["launches"], "8a": moe["launches"],
                "9a": ring["launches"]}

@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the hand-written kernel (built on first use) or
 raises; a CPU tensor takes the plain version in ``ref.py``; any other
-device raises. ``flash_attention.launches`` counts kernel launches.
+device raises, and so does an input that requires grad while grad is
+enabled. ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from . import ref
+from . import ref, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
@@ -46,6 +47,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """q (B,Sq,H,hd); k/v (B,Sk,K,hd), H a multiple of K. Masks as in
     ``ref.flash_attention``. Returns (B,Sq,H,hd) in q's dtype."""
+    refuse_grad("flash_attention", q, k, v)
     if (q_positions is None) != (kv_positions is None):
         raise ValueError("q_positions and kv_positions go together")
     if kv_segment_ids is not None and segment_ids is None:

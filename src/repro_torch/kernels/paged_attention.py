@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the hand-written kernels (built on first use) or
 raises; a CPU tensor takes the plain version in ``ref.py``; any other
-device raises. ``paged_decode_attention.launches`` counts launches of the
+device raises, and so does an input that requires grad while grad is
+enabled. ``paged_decode_attention.launches`` counts launches of the
 split-KV kernel; each is followed by one launch of its combine kernel,
 counted in ``paged_decode_attention.combine_launches``.
 """
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import ref
+from . import ref, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
@@ -98,6 +99,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            softcap: Optional[float] = None) -> torch.Tensor:
     """q (B,H,hd); k/v_pages (P,page,K,hd); block_tables (B,MP) int32;
     context_lens (B,) int32. Returns (B,H,hd) in q's dtype."""
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                           context_lens, softcap=softcap)
@@ -120,6 +122,7 @@ def decode_rows(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     (B,C,K,hd). On the card the kernel addresses row b's slots directly
     (no block table is built); on the CPU the plain version reads the rows
     as C/page pages under an identity table."""
+    refuse_grad("decode_rows", q, cache_k, cache_v)
     B, C, K, hd = cache_k.shape
     if q.device.type == "cuda":
         if cache_k.dim() != 4 or cache_k.shape[0] != q.shape[0]:

@@ -6,20 +6,32 @@ Two entry points, mirroring ``repro.models.attention``:
   * ``attn_decode``  — one new token per row against its cache row, which it
     updates in place.
 
-All core attention goes through ``repro_torch.kernels.ops``: the CUDA
-kernels on the card, their plain versions on the CPU. Activations are
-(B, S, H, hd) and weights ``x @ W`` with W (d_in, d_out), as the reference.
+All core attention of these two goes through ``repro_torch.kernels.ops``:
+the CUDA kernels on the card, their plain versions on the CPU. Training
+takes a third, ``attn_train``: the reference's differentiable XLA attention
+(``sdpa``, and ``flash_xla`` above ``FLASH_THRESHOLD`` tokens), which
+reaches no kernel, as the reference's training path reaches none.
+Activations are (B, S, H, hd) and weights ``x @ W`` with W (d_in, d_out),
+as the reference.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from ..kernels.ref import POS_INVALID
-from .common import ParamMeta, ParamTree, apply_rope, rms_norm
+from ..kernels.ref import NEG_INF, POS_INVALID
+from .common import ParamMeta, ParamTree, apply_rope, rms_norm, softcap
 from .config import ModelConfig
+
+# sequences longer than this take ``flash_xla`` in training (the dense S^2
+# ``sdpa`` below it), as the reference's XLA branch of ``attn_prefill``;
+# ``flash_xla`` works in the reference's q and k blocks
+FLASH_THRESHOLD = 2048
+BLOCK_Q, BLOCK_K = 512, 1024
 
 
 def attn_params(cfg: ModelConfig, *, kv_heads: Optional[int] = None
@@ -157,3 +169,106 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, n_valid,
                                softcap=cfg.attn_logit_softcap)[:, None]
     return out.reshape(B, 1, -1) @ p["wo"]
+
+
+# --------------------------------------------------------------------------- #
+# training: the reference's XLA attention, differentiable
+# --------------------------------------------------------------------------- #
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``_sdpa``: q (B,Sq,H,hd), k/v (B,Sk,K,hd), mask
+    (B,Sq,Sk) bool. float32 logits (products of the stored values), the
+    softcap, ``NEG_INF`` where masked, and the softmax weights cast to V's
+    dtype before PV, which accumulates in float32."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) \
+        / hd ** 0.5
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _flash_q_block(qi, pqi, ks, vs, pks, cfg: ModelConfig):
+    """One q block of ``flash_xla`` against every k block: online softmax,
+    all in float32. qi (B,bq,K,G,hd), pqi (B,bq); ks/vs/pks lists of k
+    blocks. Returns (B,bq,K,G,hd)."""
+    B, bq, K, G, hd = qi.shape
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((B, K, G, bq), NEG_INF, device=qi.device)
+    l = torch.zeros((B, K, G, bq), device=qi.device)
+    acc = torch.zeros((B, K, G, bq, hd), device=qi.device)
+    ii = pqi[:, None, None, :, None]
+    for kj, vj, pkj in zip(ks, vs, pks):
+        s = torch.einsum("bskgh,btkh->bkgst", qi, kj) * scale
+        s = softcap(s, cfg.attn_logit_softcap)
+        jj = pkj[:, None, None, None, :]
+        mask = jj <= ii
+        if cfg.sliding_window is not None:
+            mask = mask & (jj > ii - cfg.sliding_window)
+        s = torch.where(mask, s, NEG_INF)
+        # amax spreads the gradient over ties, as jnp.max does
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkh->bkgsh", p,
+                                                    vj)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4)
+
+
+def flash_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              pos_q: torch.Tensor, pos_k: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The reference's ``_flash_jnp`` without segments: streaming attention
+    over ``BLOCK_Q`` x ``BLOCK_K`` tiles with an online softmax in float32,
+    each q block under ``torch.utils.checkpoint`` (recomputed in the
+    backward pass, as the reference checkpoints ``q_step``). Pad queries
+    take position -1 and pad keys ``POS_INVALID``, so neither is seen."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    bq, bk = min(BLOCK_Q, Sq), min(BLOCK_K, Sk)
+    pq, pk = (-Sq) % bq, (-Sk) % bk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        pos_q = F.pad(pos_q, (0, pq), value=-1)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        pos_k = F.pad(pos_k, (0, pk), value=POS_INVALID)
+    qs = q.reshape(B, -1, bq, K, H // K, hd).unbind(1)
+    pqs = pos_q.reshape(B, -1, bq).unbind(1)
+    ks = k.reshape(B, -1, bk, K, hd).unbind(1)
+    vs = v.reshape(B, -1, bk, K, hd).unbind(1)
+    pks = pos_k.reshape(B, -1, bk).unbind(1)
+    outs = [checkpoint(_flash_q_block, qi, pqi, ks, vs, pks, cfg,
+                       use_reentrant=False, preserve_rng_state=False)
+            for qi, pqi in zip(qs, pqs)]
+    out = torch.cat(outs, dim=1).reshape(B, -1, H, hd)
+    return out[:, :Sq].to(dtype)
+
+
+def attn_train(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+               *, kv_heads: Optional[int] = None) -> torch.Tensor:
+    """Causal (and windowed) attention of the training forward, the
+    reference's ``attn_prefill`` on its XLA branch: ``flash_xla`` when
+    S > ``FLASH_THRESHOLD``, else ``sdpa`` under the position mask.
+    Differentiable; calls no kernel. Returns y (B,S,d)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions, kv_heads or cfg.num_kv_heads)
+    if S > FLASH_THRESHOLD:
+        out = flash_xla(q, k, v, positions, positions, cfg)
+    else:
+        ii, jj = positions[:, :, None], positions[:, None, :]
+        mask = jj <= ii
+        if cfg.sliding_window is not None:
+            mask = mask & (jj > ii - cfg.sliding_window)
+        out = sdpa(q, k, v, mask, cfg)
+    return out.reshape(B, S, -1) @ p["wo"]

@@ -4,7 +4,8 @@ embeddings, softcap and SwiGLU, in PyTorch.
 Parameters live in a flat dict ``{name: tensor}``; every module contributes
 ``ParamMeta`` (shape, init rule, scale) and ``init_params`` materialises
 them with the reference's std rule (``scale / sqrt(fan_in)``, ones for
-norms) from an explicit ``torch.Generator``. The numbers differ from JAX's
+norms) from an explicit ``torch.Generator``. ``cross_entropy`` is the
+training loss. The numbers differ from JAX's
 threefry draws; the tests carry the reference's weights across instead
 (``weights.params_from_jax``).
 """
@@ -99,3 +100,13 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE, the reference's: logits (..., V), labels (...)
+    int. The log-sum-exp runs in float32; the label's logit is gathered
+    (the same number as the reference's one-hot contraction, without a
+    (N, V) one-hot)."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0].float()
+    return (lse - ll).mean()

@@ -17,7 +17,9 @@ passes are a Python loop over the pattern where the reference scans
 segments, each layer's weights a view into the stacked tensor. Caches are
 ``{kind: {leaf: tensor}}`` with leaves (n, B, ...) as the reference's
 ``init_cache``: K/V (n, B, C, K, hd) for ``A`` and ``"shared"``, the
-recurrent states for the other kinds.
+recurrent states for the other kinds. ``forward_train`` is the training
+forward: logits over the whole sequence and the MoE aux loss, each layer
+rematerialised under ``cfg.remat``, with no cache and no kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, mlp, moe, ssm, xlstm
 from .common import ParamMeta, ParamTree, init_params, rms_norm
@@ -91,6 +94,21 @@ def _shared_after(cfg: ModelConfig, layer: int, done: int) -> bool:
     every = cfg.shared_attention_every
     return bool(every) and (layer + 1) % every == 0 \
         and done < num_shared_invocations(cfg)
+
+
+def _walk(cfg: ModelConfig, params: Params):
+    """The stack in pattern order, shared by prefill, decode and training:
+    (kind, index within its kind, the layer's weights, the index of the
+    shared-block invocation that follows the layer, or None)."""
+    done: Dict[str, int] = {}
+    n_shared = 0
+    for layer, kind in enumerate(cfg.pattern()):
+        i = done.get(kind, 0)
+        done[kind] = i + 1
+        inv = None
+        if _shared_after(cfg, layer, n_shared):
+            inv, n_shared = n_shared, n_shared + 1
+        yield kind, i, layer_params(params, cfg, kind, i), inv
 
 
 # --------------------------------------------------------------------------- #
@@ -239,17 +257,17 @@ def logits_fn(cfg: ModelConfig, params: Params, x: torch.Tensor
 
 def _ffn(p, cfg, h):
     """The feed-forward of an attention block: dense SwiGLU, a MoE, or
-    both summed (``moe_dense_residual``). The MoE's aux loss serves
-    training only and is dropped, as the reference's prefill drops it.
-    Under ``torch.profiler`` the MoE shows as the range ``model.moe``."""
+    both summed (``moe_dense_residual``). Returns (y, the MoE's aux loss or
+    None); serving drops the aux, as the reference's prefill does. Under
+    ``torch.profiler`` the MoE shows as the range ``model.moe``."""
     if not cfg.is_moe:
-        return mlp.mlp_apply(p, h)
+        return mlp.mlp_apply(p, h), None
     with torch.profiler.record_function("model.moe"):
-        y, _ = moe.moe_apply({k[len(MOE):]: v for k, v in p.items()
-                              if k.startswith(MOE)}, cfg, h)
+        y, aux = moe.moe_apply({k[len(MOE):]: v for k, v in p.items()
+                                if k.startswith(MOE)}, cfg, h)
     if cfg.moe_dense_residual:
         y = y + mlp.mlp_apply(p, h)
-    return y
+    return y, aux
 
 
 def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
@@ -266,15 +284,16 @@ def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
         prefix_len=prefix_len, prefix_positions=prefix_positions,
         prefix_segment_ids=prefix_segment_ids)
     x = x + y
-    x = x + _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
-    return x, {"k": k, "v": v}
+    y, _ = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    return x + y, {"k": k, "v": v}
 
 
 def _attn_block_decode(p, cfg, x, pos, ck, cv, kv_heads, active):
     h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
     x = x + attention.attn_decode(p, cfg, h, pos, ck, cv, kv_heads=kv_heads,
                                   active=active)
-    return x + _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    y, _ = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    return x + y
 
 
 def _index(sub: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -321,9 +340,7 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     shared = []
     akw = dict(prefix_len=prefix_len, prefix_positions=prefix_positions,
                prefix_segment_ids=prefix_segment_ids)
-    for layer, kind in enumerate(cfg.pattern()):
-        i = len(outs[kind])
-        p = layer_params(params, cfg, kind, i)
+    for kind, i, p, inv in _walk(cfg, params):
         prefix = None if prefix_caches is None \
             else _index(prefix_caches[kind], i)
         if kind == ATTN:
@@ -334,10 +351,10 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), init=prefix)
             x = x + y
         outs[kind].append(c)
-        if _shared_after(cfg, layer, len(shared)):
+        if inv is not None:
             scfg = _shared_cfg(cfg)
             sprefix = None if prefix_caches is None \
-                else _index(prefix_caches[SHARED], len(shared))
+                else _index(prefix_caches[SHARED], inv)
             x, c = _attn_block_prefill(
                 shared_params(params, cfg), scfg, x, positions,
                 scfg.num_kv_heads, segment_ids, sprefix, **akw)
@@ -400,12 +417,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     place (only rows where ``active``, when given: K/V writes and recurrent
     states alike) and returns (logits (B,V), caches)."""
     x = embed(cfg, params, tokens)
-    done: Dict[str, int] = {}
-    n_shared = 0
-    for layer, kind in enumerate(cfg.pattern()):
-        i = done.get(kind, 0)
-        done[kind] = i + 1
-        p = layer_params(params, cfg, kind, i)
+    for kind, i, p, inv in _walk(cfg, params):
         if kind == ATTN:
             x = _attn_block_decode(p, cfg, x, pos, caches[ATTN]["k"][i],
                                    caches[ATTN]["v"][i], None, active)
@@ -415,11 +427,62 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), state)
             x = x + y
             _write_state(state, new, active)
-        if _shared_after(cfg, layer, n_shared):
+        if inv is not None:
             scfg = _shared_cfg(cfg)
             x = _attn_block_decode(
                 shared_params(params, cfg), scfg, x, pos,
-                caches[SHARED]["k"][n_shared], caches[SHARED]["v"][n_shared],
+                caches[SHARED]["k"][inv], caches[SHARED]["v"][inv],
                 scfg.num_kv_heads, active)
-            n_shared += 1
     return logits_fn(cfg, params, x[:, 0]), caches
+
+
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+def _attn_block_train(p, cfg, x, positions, kv_heads):
+    """An attention block of the training forward: (x, MoE aux or None)."""
+    h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
+    x = x + attention.attn_train(p, cfg, h, positions, kv_heads=kv_heads)
+    y, aux = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
+    return x + y, aux
+
+
+def _recurrent_block_train(p, cfg, x, kind):
+    y, _ = RECURRENT_PREFILL[kind](p, cfg, rms_norm(x, p["norm"],
+                                                    cfg.rms_eps))
+    return x + y
+
+
+def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``forward_train`` with its default XLA attention:
+    returns (logits (B,F+S,V) over the frontend's F embeddings and the S
+    tokens, the MoE aux loss summed over the layers, a float32 scalar).
+    Positions are 0..F+S-1. Under ``cfg.remat`` each layer and each
+    shared-block invocation runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward pass, as the reference checkpoints each
+    layer. Differentiable: no cache is built and no kernel is called."""
+    x = embed(cfg, params, tokens, embeds)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(fn, *args):
+        if not cfg.remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    for kind, _, p, inv in _walk(cfg, params):
+        if kind == ATTN:
+            x, a = run(_attn_block_train, p, cfg, x, positions, None)
+            if a is not None:
+                aux = aux + a
+        else:
+            x = run(_recurrent_block_train, p, cfg, x, kind)
+        if inv is not None:
+            scfg = _shared_cfg(cfg)
+            x, _ = run(_attn_block_train, shared_params(params, cfg), scfg,
+                       x, positions, scfg.num_kv_heads)
+    return logits_fn(cfg, params, x), aux

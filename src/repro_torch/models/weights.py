@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes the reference's flat ``{path: array}`` dict
 (``repro.models.model.param_tree`` paths, as numpy arrays) and returns the
-port's parameters. The path-to-name mapping lives in ``JAX_TO_PORT``, and
-only there. bfloat16 goes through float32, which is exact.
+port's parameters; ``params_to_jax`` is its inverse (gradients are compared
+through it, and checkpoints carry the reference's names). The path-to-name
+mapping lives in ``JAX_TO_PORT``, and only there. bfloat16 goes through
+float32, which is exact.
 """
 from __future__ import annotations
 
@@ -93,3 +95,22 @@ def params_from_jax(flat: Dict[str, np.ndarray], *, device,
                                                         dtype=dtype)
     return out
 
+
+
+PORT_TO_JAX: Dict[str, str] = {v: k for k, v in JAX_TO_PORT.items()}
+
+
+def jax_names(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The same tensors under the reference's paths."""
+    unknown = sorted(set(params) - set(PORT_TO_JAX))
+    if unknown:
+        raise NotImplementedError(
+            f"port parameters with no reference counterpart: {unknown}")
+    return {PORT_TO_JAX[n]: t for n, t in params.items()}
+
+
+def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: a port parameter (or gradient)
+    dict as the reference's ``{path: float32 array}``."""
+    return {path: t.detach().float().cpu().numpy()
+            for path, t in jax_names(params).items()}

@@ -406,14 +406,23 @@ class ServingEngine:
         after the iteration where EOS fired. Here a device stop flag masks
         every later iteration to no active rows, so caches, ``pos`` and
         ``last_tok`` advance exactly as on the K=1 path, and rows past the
-        stop stay zero. (Masked iterations still draw from the sampling
-        generator when a row samples.)"""
+        stop stay zero.
+
+        The K=1 path draws from ``self.gen`` in each iteration where a live
+        row samples; a window draws in each of its iterations when a row
+        samples, also in masked ones and after the last sampling row's EOS.
+        So when a row samples, the generator's state after each iteration
+        is kept (``gen_states``, else None: host-side seed and offset, no
+        device read), and ``_rewind_gen`` restores the right one once the
+        window's EOS readback is in. Returns (tokens, eos flags,
+        gen_states)."""
         B = self.max_batch
         tb = torch.zeros((self._mega_max, B), dtype=torch.int32,
                          device=self.device)
         eb = torch.zeros((self._mega_max, B), dtype=torch.bool,
                          device=self.device)
         stop = torch.zeros((), dtype=torch.bool, device=self.device)
+        gen_states = [] if need_sample else None
         for i in range(k_iters):
             act = active & ~stop if stop_on_eos else active
             new, eos_hit = self._one_iter(act, need_sample, need_topk)
@@ -422,7 +431,9 @@ class ServingEngine:
             eb[i] = eos_hit
             if stop_on_eos:
                 stop = stop | eos_hit.any()
-        return tb, eb
+            if gen_states is not None:
+                gen_states.append(self.gen.get_state())
+        return tb, eb, gen_states
 
     def _seed_slots(self, slots, first: torch.Tensor, fallback, use_first,
                     poss, temps, top_ks, eos) -> None:
@@ -1324,7 +1335,7 @@ class ServingEngine:
             sched = self.scheduler
             stop_on_eos = eos_possible and bool(sched.pt_queue
                                                 or sched.gt_queue)
-            self._mega_toks, eos_buf = self._mega_fn(
+            self._mega_toks, eos_buf, gen_states = self._mega_fn(
                 self._active_dev, K, need_sample, need_topk, stop_on_eos)
             self.n_decode_dispatches += 1
             self.n_mega_windows += 1
@@ -1337,6 +1348,9 @@ class ServingEngine:
                     hit = self._mega_eos[:K, slots].any(axis=1)
                     if hit.any():
                         K = int(hit.argmax()) + 1
+                if gen_states is not None:
+                    self._rewind_gen(gen_states, self._mega_eos[:K],
+                                     temps_m)
             else:
                 self._mega_eos = None
             self._mega_row = -1
@@ -1355,6 +1369,20 @@ class ServingEngine:
             for r in reqs:
                 if flags[self.slot_of[r.rid]]:
                     self.scheduler.notify_eos(r, r.generated + 1)
+
+    def _rewind_gen(self, gen_states, eos: np.ndarray,
+                    temps: np.ndarray) -> None:
+        """Leave the generator where the K=1 path leaves it after the
+        window's K executed iterations (``eos`` (K, B), the window's flags
+        up to its cut): that path draws while a sampling row is live, and a
+        row leaves after the iteration in which it sampled its EOS. So it
+        draws in the first n iterations, n the latest such exit among the
+        sampling rows (K for a row that does not exit), and the generator
+        takes the state after the window's n-th draw."""
+        hit = eos[:, temps > 0.0]
+        n = int(np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
+                         len(eos)).max())
+        self.gen.set_state(gen_states[n - 1])
 
     def _consume_mega_row(self, reqs: Sequence[Request]) -> None:
         """One host-replay iteration of a megastep window."""

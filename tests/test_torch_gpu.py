@@ -404,3 +404,59 @@ def test_fleet_of_two_on_the_card(card, roles):
         assert all(i.engine.scheduler.completed for i in fleet.instances)
     else:
         assert fleet.n_migrations == 8 and fleet.n_kv_fallbacks == 0
+
+
+def test_wrappers_refuse_inputs_that_require_grad_on_the_card(card):
+    """A ctypes launch returns a tensor with no ``grad_fn``: each wrapper
+    raises for an input that requires grad instead of losing the
+    gradient."""
+    from repro_torch.kernels.paged_attention import decode_rows
+    q = torch.randn(1, 64, 4, 64, device="cuda", requires_grad=True)
+    rows = torch.randn(1, 64, 4, 64, device="cuda")
+    lens = torch.tensor([64], dtype=torch.int32, device="cuda")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="paged_decode_attention"):
+        paged_decode_attention(q[:, 0], rows, rows, bt, lens)
+    with pytest.raises(RuntimeError, match="decode_rows"):
+        decode_rows(q[:, 0], rows, rows, lens, 64)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).grad_fn is None
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """Chip-smoke phase 11b at a small size: one train step of reduced
+    qwen3 in float32 (TF32 off) at S = 2304, crossing both attention
+    forms, on the card and on the CPU from the same weights and batch: the
+    loss to 1e-5 relative and every grad to 1e-4 * max|g| per leaf
+    (``make_grad_fn``); then ``apply_updates`` on each device from the
+    CPU's grads, every updated param to 1e-5 (AdamW's first step turns a
+    grad difference d near g = 0 into up to lr / eps * d of param, so the
+    update is held on equal grads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
+                                                init_state)
+    from repro_torch.training.train_loop import batch_to, make_grad_fn
+    cfg = get_config("qwen3_8b").reduced(layers=2).with_(
+        dtype="float32", param_dtype="float32", remat=True)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5)
+    cpu = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = {k: p.cuda() for k, p in cpu.items()}
+    batch = next(SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=2304, batch_size=1)).batches())
+    want_loss, _, want = make_grad_fn(cfg)(cpu, batch_to(batch, cfg, "cpu"))
+    got_loss, _, got = make_grad_fn(cfg)(gpu, batch_to(batch, cfg, "cuda"))
+    assert abs(float(got_loss) - float(want_loss)) \
+        <= 1e-5 * abs(float(want_loss))
+    for k, g in want.items():
+        tol = 1e-4 * float(g.abs().max())
+        assert float((got[k].cpu() - g).abs().max()) <= tol, k
+    apply_updates(gpu, {k: g.cuda() for k, g in want.items()},
+                  init_state(gpu, opt), opt)
+    apply_updates(cpu, want, init_state(cpu, opt), opt)
+    for k, p in cpu.items():
+        assert float((gpu[k].detach().cpu() - p.detach()).abs().max()) \
+            <= 1e-5, k

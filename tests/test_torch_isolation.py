@@ -23,7 +23,7 @@ COPIED = ([f"core/{m}.py" for m in ("request", "kvc", "ordering",
           + [f"cluster/{m}.py" for m in ("transport", "autoscale", "base",
                                          "router", "hedge", "sim",
                                          "__init__")]
-          + ["models/config.py", "configs/__init__.py"]
+          + ["models/config.py", "configs/__init__.py", "training/data.py"]
           + [f"configs/{p.name}"
              for p in sorted((REF / "configs").glob("*.py"))
              if p.name != "__init__.py"])

@@ -139,3 +139,28 @@ def test_flash_packed_chunks_match_jax(Cp, spans, win, cap, dtype):
                  rng.standard_normal((1, n * Cp + T, 2, 32)), dtype, 64,
                  window=win, softcap=cap, segment_ids=qseg,
                  kv_segment_ids=kseg, q_positions=qpos, kv_positions=kpos)
+
+
+def test_wrappers_refuse_inputs_that_require_grad():
+    """The kernels have no backward: each wrapper raises for an input that
+    requires grad (on the CPU too, where it would run the plain version),
+    and runs under ``torch.no_grad`` or on detached inputs."""
+    from repro_torch.kernels.flash_prefill import flash_attention
+    from repro_torch.kernels.paged_attention import (decode_rows,
+                                                     paged_decode_attention)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 16, 2, 32, generator=g, requires_grad=True)
+    rows = torch.randn(1, 16, 2, 32, generator=g)
+    lens = torch.tensor([16], dtype=torch.int32)
+    bt = torch.zeros((1, 1), dtype=torch.int32)
+    calls = {"flash_attention": lambda a: flash_attention(a, a, a),
+             "paged_decode_attention": lambda a: paged_decode_attention(
+                 a[:, 0], rows, rows, bt, lens),
+             "decode_rows": lambda a: decode_rows(a[:, 0], rows, rows, lens,
+                                                  16)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            call(q)
+        with torch.no_grad():
+            call(q)
+        assert not call(q.detach()).requires_grad
