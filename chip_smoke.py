@@ -1,8 +1,9 @@
 """Card smoke test of the PyTorch port: build, check and time the CUDA
 kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE and mistral-nemo-12b
 (sliding-window ring caches) at full width through ``ServingEngine``, run
-phi3-vision's embedding-frontend prefill, and train qwen3-8b at full width
-through ``repro_torch.training``.
+phi3-vision's embedding-frontend prefill, train qwen3-8b at full width
+through ``repro_torch.training``, dry-run the production mesh on the host
+and run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -26,7 +27,11 @@ Phases (any failure raises and exits non-zero):
      time kernel, plain version and one library call (SDPA, bool mask,
      ``enable_gqa``) with CUDA events, each rotating over copies of its
      inputs so that every call finds them cold in L2, and compute each
-     kernel's bound from the call's inputs;
+     kernel's bound from the call's inputs; and phase 12b's shapes:
+     causal (1, 32768, 32, 128) (held to the plain version on all 64
+     blocks of 512 query rows, whose whole (H, S, S) scores do not fit; timed
+     beside SDPA with ``is_causal``, the plain version not timed) and
+     decode (8, 32768, 8, 128) at ctx 32768;
   4. the main path: qwen3-8b at its published widths and depth (36 layers,
      bf16, seeded random weights), max_batch 8, capacity 2048, default
      EngineConfig, 12 requests; checks lengths, launch counters, chunk waves
@@ -104,10 +109,25 @@ Phases (any failure raises and exits non-zero):
      b. one float32 train step (TF32 off) of qwen3-8b at full width cut to
         2 layers at S = 2304 on the card and on the CPU from the same
         weights and batch: loss, every grad and every updated param.
+ 12. sharding and launch:
+     a. ``repro_torch.launch.dryrun`` on the host, before any process
+        group: a fake process group of 256 ranks, fake tensors, the
+        production (32, 8) mesh; qwen3-8b at all four shapes, zamba2-7b
+        decode_32k, phi3.5-MoE prefill_32k and arctic-480b train_4k at
+        full size must all trace; prints bytes a card, fits-80GB, the
+        roofline terms and the bottleneck; then the two shapes of 12b on a
+        fake (1, 1) mesh, for their per-card totals;
+     b. qwen3-8b at full width and depth, bf16, seeded, through
+        ``build_step`` on a real 1-rank NCCL mesh (1, 1): prefill_32k at
+        batch 1 and decode_32k at batch 8 (8 rows of 32768 slots, 38.65 GB
+        of caches); greedy tokens equal to the same call without a mesh,
+        each layer's kernel launched once a step, the median step ms of
+        three and peak memory beside
+        the dry-run's total (decode within 15%).
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
-7a, 8a and 9a; the top-level times are the zamba2 shapes, every timed
-shape under ``shapes``); the last line is
+7a, 8a and 9a and the sharded steps of 12b; the top-level times are the
+zamba2 shapes, every timed shape under ``shapes``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -116,6 +136,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -135,6 +156,8 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 # the reference's long-context sliding window (``LONG_WINDOW`` in
 # src/repro/launch/shapes.py, which ``adapt_config`` gives mistral-nemo-12b)
 WINDOW = 8192
+# the prefill_32k / decode_32k context (``SHAPES`` in launch/shapes.py)
+LONG = 32768
 SPANS = ("engine.prefill_wave", "engine.prefill_chunks", "engine.decode")
 MOE_SPAN = "model.moe"      # nested inside SPANS: a MoE layer's routing + FFN
 
@@ -511,6 +534,8 @@ def phase_kernels(torch, seed: int) -> dict:
             nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * ints)
         flash_recs.append(dict(rec, shape=label, max_abs_err=flash_errs[-1]))
 
+    flash_recs.append(_flash_long(torch, gen, flash_errs))
+
     B, C = 8, 2048
     ctx = torch.randint(1, C + 1, (B,), generator=cpu_gen).int().cuda()
     ctx[0], ctx[1] = 1, C
@@ -520,12 +545,83 @@ def phase_kernels(torch, seed: int) -> dict:
     rings = torch.full((4,), WINDOW, dtype=torch.int32, device="cuda")
     paged_recs.insert(0, _decode_serving(torch, gen, rings, 32, 8, 128,
                                          paged_errs, C=WINDOW))
+    # phase 12b's decode_32k: 8 rows of LONG slots, every one valid
+    full = torch.full((8,), LONG, dtype=torch.int32, device="cuda")
+    paged_recs.insert(0, _decode_serving(torch, gen, full, 32, 8, 128,
+                                         paged_errs, C=LONG))
     return {
         "flash_prefill": dict(flash_recs[0], max_abs_err_all=max(flash_errs),
                               shapes=flash_recs),
         "paged_decode": dict(paged_recs[-1], max_abs_err_all=max(paged_errs),
                              shapes=paged_recs),
     }
+
+
+def _flash_long(torch, gen, flash_errs: list) -> dict:
+    """Phase 12b's prefill_32k: qwen3-8b's causal (1, LONG, 32, 128) over
+    k/v (1, LONG, 8, 128). The plain version's (H, S, S) scores do not fit
+    the card, so the kernel is held to it on every block of 512 query rows
+    (the same function with explicit positions, over the keys up to the
+    block's last row) in float32 and bf16, and its time is set beside
+    SDPA's (``is_causal``) only."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_attention
+    S, H, K, hd = LONG, 32, 8, 128
+    q = torch.randn(1, S, H, hd, generator=gen, device="cuda")
+    k = torch.randn(1, S, K, hd, generator=gen, device="cuda")
+    v = torch.randn(1, S, K, hd, generator=gen, device="cuda")
+    pos = torch.arange(S, device="cuda")[None]
+    label = f"qwen3 prefill_32k (1,{S},{H},{hd}) k/v (1,{S},{K},{hd}) causal"
+    for dtype, dn in ((torch.float32, "float32"), (torch.bfloat16,
+                                                   "bfloat16")):
+        qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = flash_attention(qq, kk, vv)
+        atol, rtol = TOL[dn]
+        worst = 0.0
+        for r0 in range(0, S, 512):
+            rows, keys = slice(r0, r0 + 512), slice(0, r0 + 512)
+            want = ref.flash_attention(
+                qq[:, rows], kk[:, keys], vv[:, keys],
+                q_positions=pos[:, rows], kv_positions=pos[:, keys])
+            err = (got[:, rows].float() - want.float()).abs().max().item()
+            if not math.isfinite(err) or not torch.allclose(
+                    got[:, rows].float(), want.float(), atol=atol,
+                    rtol=rtol):
+                raise AssertionError(
+                    f"flash {label} rows {r0}-{r0 + 511} {dn} disagrees "
+                    f"with its plain version: max_abs_err {err}")
+            worst = max(worst, err)
+            del want
+        log(f"[3 kernels] flash {label} all {S // 512} blocks of 512 rows "
+            f"{dn}: max_abs_err {worst:.3e} (atol {atol:g}, rtol {rtol:g}) "
+            f"ok")
+        flash_errs.append(worst)
+        del got
+    q, k, v = q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    n = _copies(sum(t.numel() * t.element_size() for t in (q, k, v)))
+    sets = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                          for _ in range(n - 1)]
+    rec = {"ms": _time_ms(torch, [lambda s=s: flash_attention(*s)
+                                  for s in sets], 5),
+           "plain_ms": None,
+           "library_ms": _time_ms(torch, [
+               lambda s=s: F.scaled_dot_product_attention(
+                   s[0].transpose(1, 2), s[1].transpose(1, 2),
+                   s[2].transpose(1, 2), is_causal=True, enable_gqa=True)
+               for s in sets], 5),
+           "copies": n}
+    del sets
+    pairs = S * (S + 1) // 2
+    rec.update(_bound(4.0 * pairs * H * hd,
+                      2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                      "bfloat16"))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    log(f"[3 kernels] flash {label} bf16 timing ({n} input copies): kernel "
+        f"{rec['ms']:.4f} ms, plain not measured (its scores do not fit), "
+        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms"
+        f" ({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound")
+    return dict(rec, shape=label, max_abs_err=flash_errs[-1])
 
 
 def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
@@ -1612,7 +1708,6 @@ def phase_train(torch, smi: str, seed: int) -> dict:
     causal attention's 6 L H hd S^2 B; the remat recompute is not
     counted); then one more step under ``torch.profiler``: device busy,
     its idle share against the median step, and the GEMMs' share."""
-    import statistics
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.training import train_loop
@@ -1746,6 +1841,200 @@ def phase_train_parity(torch, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+# phase 12: sharding and launch
+# --------------------------------------------------------------------------- #
+DRYRUN_COMBOS = [("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                 ("qwen3-8b", "decode_32k"), ("qwen3-8b", "long_500k"),
+                 ("zamba2-7b", "decode_32k"),
+                 ("phi3.5-moe-42b-a6.6b", "prefill_32k"),
+                 ("arctic-480b", "train_4k")]
+# 12b's cuts of the production shapes' global batch (the whole batch is a
+# data-parallel one over 32 cards): one prompt of 32768 tokens; 8 rows of
+# 32768 slots (38.65 GB of caches beside 16.4 GB of weights)
+SHARDED_BATCH = {"prefill_32k": 1, "decode_32k": 8}
+SHARDED_STEPS = 3                   # timed steps of each after a warm one
+
+
+def phase_dryrun(torch) -> dict:
+    """12a: ``repro_torch.launch.dryrun`` on the host: a fake process group
+    of 256 ranks, fake tensors, the production (32, 8) mesh; each combo of
+    ``DRYRUN_COMBOS`` at its full size must trace (``ok``); prints the
+    per-device bytes, whether they fit 80 GB, the roofline terms and the
+    bottleneck. Then the two shapes of 12b at their cut batches on a fake
+    (1, 1) mesh: the per-device totals 12b holds the card's peak to."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    t0 = time.monotonic()
+    # one spawned process a combo, each with its own fake world (the
+    # training traces take 1-2 minutes each on the host)
+    with ProcessPoolExecutor(max_workers=len(DRYRUN_COMBOS),
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        futures = [pool.submit(dryrun.sweep, [arch], [shape], [False],
+                               None, False) for arch, shape in DRYRUN_COMBOS]
+        found = [f.result()[0] for f in futures]
+    recs = []
+    for (arch, shape), rec in zip(DRYRUN_COMBOS, found):
+        if rec["status"] != "ok":
+            raise AssertionError(f"[12a dryrun] {arch} {shape}: "
+                                 f"{rec['status']} {rec.get('error')}")
+        ro = rec["roofline"]
+        log(f"[12a dryrun] {arch} {shape} 32x8: "
+            f"{rec['mem_per_device'] / 1e9:.3f} GB a card "
+            f"(argument {rec['mem_bytes']['argument'] / 1e9:.3f}, temp "
+            f"{rec['mem_bytes']['temp'] / 1e9:.3f}, output "
+            f"{rec['mem_bytes']['output'] / 1e9:.3f}, alias "
+            f"{rec['mem_bytes']['alias'] / 1e9:.3f}), fits 80 GB "
+            f"{rec['fits']}; compute {ro['compute_s']:.4g} s, memory "
+            f"{ro['memory_s']:.4g} s, collective {ro['collective_s']:.4g}"
+            f" s ({json.dumps(rec['collective_bytes'])} B): "
+            f"{rec['bottleneck']}; traced in {rec['compile_s']} s")
+        recs.append(rec)
+    predicted = {}
+    from torch.distributed.device_mesh import init_device_mesh
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh(dryrun.mesh_device(), (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for name, batch in SHARDED_BATCH.items():
+            base = SHAPES[name]
+            rec = dryrun.run_one(
+                "qwen3-8b", name, False, verbose=False, mesh=mesh,
+                cfg=get_config("qwen3-8b"),
+                shape=ShapeSpec(name, base.kind, base.seq_len, batch))
+            if rec["status"] != "ok":
+                raise AssertionError(f"[12a dryrun] qwen3-8b {name} 1x1: "
+                                     f"{rec.get('error')}")
+            predicted[name] = rec
+            log(f"[12a dryrun] qwen3-8b {name} batch {batch} 1x1: "
+                f"{rec['mem_per_device'] / 1e9:.3f} GB "
+                f"({json.dumps(rec['mem_bytes'])})")
+    log(f"[12a dryrun] {time.monotonic() - t0:.1f} s")
+    return {"records": recs, "predicted": predicted,
+            "seconds": time.monotonic() - t0}
+
+
+def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
+    """12b: qwen3-8b at its published widths and depth (36 layers, bf16,
+    seeded weights) through ``launch.shapes.build_step`` on a real 1-rank
+    NCCL ``DeviceMesh`` (1, 1): ``prefill_32k`` at batch 1 (flash, causal,
+    S = 32768) and ``decode_32k`` at batch 8 (the decode kernel over 8 rows
+    of 32768 slots, each at position 32767). Each step's greedy tokens
+    must equal those of ``model.prefill`` / ``model.decode_step`` on the
+    same tensors with no mesh; each layer launches its kernel once in each
+    of ``SHARDED_STEPS`` timed steps (counts zeroed just before each; the
+    step ms is their median); the card's peak memory is
+    printed beside the dry-run's per-device total for the same shape, and
+    for decode the two agree within 15%."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import flash_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec, build_step
+    from repro_torch.models import model
+    from repro_torch.models.common import set_mesh_axes
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out = {"card": smi, "launches": {"flash_prefill": 0, "paged_decode": 0,
+                                     "combine": 0}}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("qwen3-8b")
+        L = cfg.num_layers
+        for name, batch in SHARDED_BATCH.items():
+            base = SHAPES[name]
+            decode = base.kind == "decode"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            step, args, _ = build_step(
+                cfg, ShapeSpec(name, base.kind, base.seq_len, batch), mesh,
+                device="cuda", seed=seed)
+            torch.cuda.synchronize()
+            build_s = time.monotonic() - t0
+            step(*args)                      # warm: DTensor's plans
+            torch.cuda.synchronize()
+            # the step is host-bound (DTensor dispatch): its median of a
+            # few; each step's outputs are freed before the next one runs
+            times, res = [], None
+            for _ in range(SHARDED_STEPS):
+                res = None
+                _zero_launches()
+                t1 = time.monotonic()
+                res = step(*args)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.monotonic() - t1))
+            step_ms = statistics.median(times)
+            n = {"flash_prefill": flash_attention.launches,
+                 "paged_decode": paged_decode_attention.launches,
+                 "combine": paged_decode_attention.combine_launches}
+            want = {"flash_prefill": 0 if decode else L,
+                    "paged_decode": L if decode else 0,
+                    "combine": L if decode else 0}
+            if n != want:
+                raise AssertionError(f"[12b {name}] launches {n}, want "
+                                     f"{want}")
+            for k in n:
+                out["launches"][k] += n[k]
+            peak = torch.cuda.max_memory_allocated()
+            toks = res[0].full_tensor()
+            del res
+            # the same call with no mesh, on the same (whole, 1x1) tensors
+            set_mesh_axes(())
+            params = {k: v.to_local() for k, v in args[0].items()}
+            with torch.no_grad():
+                if decode:
+                    caches = {kd: {c: t.to_local() for c, t in sub.items()}
+                              for kd, sub in args[3].items()}
+                    logits, _ = model.decode_step(
+                        cfg, params, args[1].to_local(), args[2].to_local(),
+                        caches)
+                    del caches
+                else:
+                    logits, _ = model.prefill(
+                        cfg, params, args[1]["tokens"].to_local(),
+                        last_only=True)
+            plain = logits.argmax(dim=-1).to(torch.int32)
+            if not torch.equal(toks, plain):
+                raise AssertionError(f"[12b {name}] tokens with the mesh "
+                                     f"{toks.tolist()} != without "
+                                     f"{plain.tolist()}")
+            pred = predicted[name]["mem_per_device"]
+            out[name] = {"batch": batch, "seq": base.seq_len,
+                         "build_s": build_s, "step_ms": step_ms,
+                         "steps_ms": times,
+                         "launches": n, "peak_gb": peak / 1e9,
+                         "predicted_gb": pred / 1e9,
+                         "peak_over_predicted": peak / pred,
+                         "tokens": toks.tolist()}
+            log(f"[12b sharded] {name} batch {batch} on a 1x1 NCCL mesh "
+                f"({smi}): step {step_ms:.2f} ms (median of "
+                f"{', '.join(f'{t:.2f}' for t in times)}), launches {n} a "
+                f"step, peak "
+                f"{peak / 1e9:.3f} GB against the dry-run's "
+                f"{pred / 1e9:.3f} GB ({100 * (peak / pred - 1):+.1f}%), "
+                f"tokens equal without the mesh; built in {build_s:.1f} s")
+            if decode and abs(peak / pred - 1) > 0.15:
+                raise AssertionError(f"[12b {name}] peak {peak} and the "
+                                     f"dry-run's {pred} differ by more than "
+                                     f"15%")
+            del step, args, params, logits, plain, toks
+    finally:
+        set_mesh_axes(())
+        dist.destroy_process_group()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1795,9 +2084,12 @@ def main(argv=None) -> int:
     phase_train(torch, smi, args.seed)
     torch.cuda.empty_cache()
     phase_train_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch)
+    sharded = phase_sharded(torch, smi, args.seed, dry["predicted"])
     serving = {"4": main["launches"], "6": fleet["launches"],
                "7a": zamba["launches"], "8a": moe["launches"],
-               "9a": ring["launches"]}
+               "9a": ring["launches"], "12b": sharded["launches"]}
     launches = {k: sum(n[k] for n in serving.values())
                 for k in ("flash_prefill", "paged_decode")}
     log(f"[launches] by serving phase: {json.dumps(serving)}")
@@ -1819,7 +2111,7 @@ def main(argv=None) -> int:
          "launches": launches["paged_decode"],
          "combine_launches": main["paged_decode_combine_launches"]
          + fleet["combine_launches"] + sum(
-             serving[k]["combine"] for k in ("7a", "8a", "9a")),
+             serving[k]["combine"] for k in ("7a", "8a", "9a", "12b")),
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "share_of_bound")},

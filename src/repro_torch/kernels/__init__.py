@@ -14,3 +14,12 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(f"{name}: the kernel has no backward; an input "
                            f"requires grad (training attention is "
                            f"models.attention.attn_train)")
+
+
+def traced(t) -> bool:
+    """Whether ``t`` is a fake tensor (a trace under ``FakeTensorMode``,
+    as the dry-run makes): a wrapper then returns an empty output of its
+    kernel's shape and dtype (the kernel's fake implementation, what
+    ``torch.library.register_fake`` would give) and launches nothing."""
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)

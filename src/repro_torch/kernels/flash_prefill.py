@@ -3,7 +3,8 @@
 A CUDA tensor launches the hand-written kernel (built on first use) or
 raises; a CPU tensor takes the plain version in ``ref.py``; any other
 device raises, and so does an input that requires grad while grad is
-enabled. ``flash_attention.launches`` counts kernel launches.
+enabled; a fake tensor (a ``FakeTensorMode`` trace) gets an empty
+output. ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from . import ref, refuse_grad
+from . import ref, refuse_grad, traced
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
@@ -56,6 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, K = k.shape[1], k.shape[2]
     if q_positions is None and Sq != Sk:
         raise ValueError("rectangular attention requires explicit positions")
+    if traced(q):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,

@@ -3,7 +3,8 @@
 A CUDA tensor launches the hand-written kernels (built on first use) or
 raises; a CPU tensor takes the plain version in ``ref.py``; any other
 device raises, and so does an input that requires grad while grad is
-enabled. ``paged_decode_attention.launches`` counts launches of the
+enabled; a fake tensor (a ``FakeTensorMode`` trace) gets an empty
+output. ``paged_decode_attention.launches`` counts launches of the
 split-KV kernel; each is followed by one launch of its combine kernel,
 counted in ``paged_decode_attention.combine_launches``.
 """
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import ref, refuse_grad
+from . import ref, refuse_grad, traced
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 112, 128, 160)   # 64-160: every config's hd
@@ -100,6 +101,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q (B,H,hd); k/v_pages (P,page,K,hd); block_tables (B,MP) int32;
     context_lens (B,) int32. Returns (B,H,hd) in q's dtype."""
     refuse_grad("paged_decode_attention", q, k_pages, v_pages)
+    if traced(q):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                           context_lens, softcap=softcap)
@@ -123,6 +126,8 @@ def decode_rows(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     (no block table is built); on the CPU the plain version reads the rows
     as C/page pages under an identity table."""
     refuse_grad("decode_rows", q, cache_k, cache_v)
+    if traced(q):
+        return torch.empty_like(q)
     B, C, K, hd = cache_k.shape
     if q.device.type == "cuda":
         if cache_k.dim() != 4 or cache_k.shape[0] != q.shape[0]:

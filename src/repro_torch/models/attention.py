@@ -20,11 +20,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.dtensor import (is_dtensor, merge_heads, replicated,
+                                   split_heads)
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, POS_INVALID
-from .common import ParamMeta, ParamTree, apply_rope, rms_norm, softcap
+from .common import (EMBED, HEADS, KV, NUL, ParamMeta, ParamTree, apply_rope,
+                     rms_norm, softcap)
 from .config import ModelConfig
 
 # sequences longer than this take ``flash_xla`` in training (the dense S^2
@@ -40,24 +44,23 @@ def attn_params(cfg: ModelConfig, *, kv_heads: Optional[int] = None
     nh = cfg.num_heads
     nkv = kv_heads or cfg.num_kv_heads
     t: ParamTree = {
-        "wq": ParamMeta((d, nh * hd)),
-        "wk": ParamMeta((d, nkv * hd)),
-        "wv": ParamMeta((d, nkv * hd)),
-        "wo": ParamMeta((nh * hd, d)),
+        "wq": ParamMeta((d, nh * hd), (EMBED, HEADS)),
+        "wk": ParamMeta((d, nkv * hd), (EMBED, KV)),
+        "wv": ParamMeta((d, nkv * hd), (EMBED, KV)),
+        "wo": ParamMeta((nh * hd, d), (HEADS, EMBED)),
     }
     if cfg.use_qk_norm:
-        t["q_norm"] = ParamMeta((hd,), init="ones")
-        t["k_norm"] = ParamMeta((hd,), init="ones")
+        t["q_norm"] = ParamMeta((hd,), (NUL,), init="ones")
+        t["k_norm"] = ParamMeta((hd,), (NUL,), init="ones")
     return t
 
 
 def _project_qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                  x: torch.Tensor, positions: torch.Tensor, nkv: int):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+    q = split_heads(x @ p["wq"], cfg.num_heads, hd)
+    k = split_heads(x @ p["wk"], nkv, hd)
+    v = split_heads(x @ p["wv"], nkv, hd)
     if cfg.use_qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -131,8 +134,34 @@ def attn_prefill(p, cfg: ModelConfig, x: torch.Tensor,
         out = ops.flash_attention(q, k, v, segment_ids, causal=True,
                                   window=cfg.sliding_window,
                                   softcap=cfg.attn_logit_softcap)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    y = merge_heads(out) @ p["wo"]
     return y, (k, v)
+
+
+def _write_slot_sharded(cache, slot, new) -> None:
+    """``cache[b, slot[b]] = new[b]`` in place on a DTensor cache (B,C,K,hd)
+    in its own layout: each rank writes its block. ``new`` (B,K,hd) and
+    ``slot`` (B,) are laid out to follow the cache's rows, kv heads and head
+    dim; along a cache sharded by slots only the rank that holds the slot
+    writes it (the others rewrite their own value, with no host sync)."""
+    mesh, pl = cache.device_mesh, cache.placements
+    # cache dims (B,C,K,hd) -> new's (B,K,hd); a slot shard replicates
+    new_pl = [Shard(max(0, p.dim - 1)) if p.is_shard() and p.dim != 1
+              else Replicate() for p in pl]
+    slot_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    c = cache.to_local()
+    n = new.redistribute(mesh, new_pl).to_local()
+    s = replicated(slot, mesh).redistribute(mesh, slot_pl).to_local()
+    coord, off = mesh.get_coordinate(), 0
+    for md, p in enumerate(pl):
+        if p.is_shard() and p.dim == 1:
+            off = off * mesh.size(md) + coord[md]
+    Cl = c.shape[1]
+    ls = s.long() - off * Cl
+    mine = (ls >= 0) & (ls < Cl)
+    ls = ls.clamp(0, Cl - 1)
+    b = torch.arange(c.shape[0], device=c.device)
+    c[b, ls] = torch.where(mine[:, None, None], n.to(c.dtype), c[b, ls])
 
 
 def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
@@ -155,20 +184,26 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     slot = (pos % C if windowed else torch.clamp(pos, max=C - 1)).long()
     bidx = torch.arange(B, device=x.device)
     k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-    if active is not None:
-        # masked write without a host sync: inactive rows rewrite their
-        # own current value
-        m = active[:, None, None]
-        k_new = torch.where(m, k_new, cache_k[bidx, slot])
-        v_new = torch.where(m, v_new, cache_v[bidx, slot])
-    cache_k[bidx, slot] = k_new
-    cache_v[bidx, slot] = v_new
+    if is_dtensor(cache_k):
+        if active is not None:
+            raise NotImplementedError("a sharded decode writes every row")
+        _write_slot_sharded(cache_k, slot, k_new)
+        _write_slot_sharded(cache_v, slot, v_new)
+    else:
+        if active is not None:
+            # masked write without a host sync: inactive rows rewrite
+            # their own current value
+            m = active[:, None, None]
+            k_new = torch.where(m, k_new, cache_k[bidx, slot])
+            v_new = torch.where(m, v_new, cache_v[bidx, slot])
+        cache_k[bidx, slot] = k_new
+        cache_v[bidx, slot] = v_new
     # every written slot is valid; softmax is permutation-invariant, so
     # ring-buffer slot order does not matter — a count suffices
     n_valid = torch.clamp(pos + 1, max=C) if windowed else pos + 1
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, n_valid,
                                softcap=cfg.attn_logit_softcap)[:, None]
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 # --------------------------------------------------------------------------- #
@@ -263,12 +298,17 @@ def attn_train(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     Differentiable; calls no kernel. Returns y (B,S,d)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, kv_heads or cfg.num_kv_heads)
-    if S > FLASH_THRESHOLD:
-        out = flash_xla(q, k, v, positions, positions, cfg)
-    else:
+
+    def core(q, k, v, positions):
+        if S > FLASH_THRESHOLD:
+            return flash_xla(q, k, v, positions, positions, cfg)
         ii, jj = positions[:, :, None], positions[:, None, :]
         mask = jj <= ii
         if cfg.sliding_window is not None:
             mask = mask & (jj > ii - cfg.sliding_window)
-        out = sdpa(q, k, v, mask, cfg)
-    return out.reshape(B, S, -1) @ p["wo"]
+        return sdpa(q, k, v, mask, cfg)
+
+    # under a mesh the core runs on each rank's rows and heads
+    out = ops.heads_region(core, q, k, v, (positions,)) if is_dtensor(q) \
+        else core(q, k, v, positions)
+    return merge_heads(out) @ p["wo"]

@@ -2,12 +2,17 @@
 embeddings, softcap and SwiGLU, in PyTorch.
 
 Parameters live in a flat dict ``{name: tensor}``; every module contributes
-``ParamMeta`` (shape, init rule, scale) and ``init_params`` materialises
-them with the reference's std rule (``scale / sqrt(fan_in)``, ones for
-norms) from an explicit ``torch.Generator``. ``cross_entropy`` is the
-training loss. The numbers differ from JAX's
-threefry draws; the tests carry the reference's weights across instead
-(``weights.params_from_jax``).
+``ParamMeta`` (shape, logical axes, init rule, scale) and ``init_params``
+materialises them with the reference's std rule (``scale / sqrt(fan_in)``,
+ones for norms) from an explicit ``torch.Generator``; ``abstract_params``
+gives the same tree as tensors on the ``meta`` device, and the logical axes
+map onto a mesh in ``distributed/sharding.py``. ``cross_entropy`` is the
+training loss. The numbers differ from JAX's threefry draws; the tests
+carry the reference's weights across instead (``weights.params_from_jax``).
+
+The mesh hooks (``set_mesh_axes``, ``active_mesh``, ``data_shards``,
+``maybe_constrain``) are the reference's: the launchers declare the mesh,
+and with none declared every hook is a no-op.
 """
 from __future__ import annotations
 
@@ -17,13 +22,34 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..distributed.dtensor import (BATCH_AXES, all_reduce_max, is_dtensor,
+                                   placements_for, psum, rows_heads)
+
+
+# Logical axis names. distributed/sharding.py maps these to mesh axes.
+VOCAB = "vocab"
+EMBED = "embed"        # d_model
+HEADS = "heads"        # fused q heads * head_dim
+KV = "kv"              # fused kv heads * head_dim
+MLP = "mlp"            # ffn hidden
+EXPERT = "expert"
+INNER = "inner"        # ssm/xlstm inner width
+STATE = "state"        # ssm state dim
+LAYER = "layer"        # stacked-layer leading dim
+NUL = None
 
 
 @dataclass(frozen=True)
 class ParamMeta:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"      # normal | zeros | ones | small
     scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 ParamTree = Dict[str, ParamMeta]
@@ -60,6 +86,18 @@ def materialize(meta: ParamMeta, gen: torch.Generator, dtype: torch.dtype,
 def init_params(tree: ParamTree, gen: torch.Generator, dtype: torch.dtype,
                 device) -> Dict[str, torch.Tensor]:
     return {n: materialize(tree[n], gen, dtype, device) for n in sorted(tree)}
+
+
+def abstract_params(tree: ParamTree, dtype: torch.dtype
+                    ) -> Dict[str, torch.Tensor]:
+    """The tree as tensors on the ``meta`` device: shapes and dtype, no
+    storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return {n: torch.empty(m.shape, dtype=dtype, device="meta")
+            for n, m in tree.items()}
+
+
+def param_axes(tree: ParamTree) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {n: m.axes for n, m in tree.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -106,7 +144,119 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE, the reference's: logits (..., V), labels (...)
     int. The log-sum-exp runs in float32; the label's logit is gathered
     (the same number as the reference's one-hot contraction, without a
-    (N, V) one-hot)."""
+    (N, V) one-hot). On a DTensor it is vocab-parallel (``_ce_sharded``)."""
+    if is_dtensor(logits):
+        return _ce_sharded(logits, labels).mean()
     lse = torch.logsumexp(logits.float(), dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0].float()
     return (lse - ll).mean()
+
+
+def _ce_sharded(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE of DTensor logits (..., V), Megatron's vocab-parallel
+    CE: in a region over each rank's rows and block of the vocab, the max
+    and the sum of exponentials reduce over "model" and the label's logit
+    comes from the rank that holds it, so no rank builds a (N, V) tensor
+    wider than its own block."""
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    split = mi is not None and logits.shape[-1] % mesh.size(mi) == 0
+
+    def local(lg, lab):
+        lg = lg.float()
+        cols = lg.shape[-1]
+        m = lg.detach().amax(-1)
+        idx = lab.long()
+        if split:
+            m = all_reduce_max(m, mesh, mi)
+            idx = idx - mesh.get_coordinate()[mi] * cols
+        mine = (idx >= 0) & (idx < cols)
+        se = (lg - m[..., None]).exp().sum(-1)
+        ll = lg.gather(-1, idx.clamp(0, cols - 1)[..., None])[..., 0] * mine
+        if split:
+            se, ll = psum(se, mesh, mi), psum(ll, mesh, mi)
+        return m + torch.log(se) - ll
+
+    return rows_heads(local, (logits, labels),
+                      ((0, logits.dim() - 1), (0, None)), ((0, None),),
+                      heads=logits.shape[-1])
+
+
+# --------------------------------------------------------------------------- #
+# mesh hooks
+# --------------------------------------------------------------------------- #
+_ACTIVE_MESH_AXES: tuple = ()
+_ACTIVE_MESH_SIZES: dict = {}
+_ACTIVE_MESH = None
+
+
+def set_mesh_axes(axes, sizes: dict | None = None, mesh=None) -> None:
+    """Declare the mesh axis names (and sizes) activation constraints may
+    reference, and the ``DeviceMesh`` they live on. Called by the launchers
+    (``build_step`` / train); empty in the single-device paths, where
+    ``maybe_constrain`` is a no-op and ``data_shards`` is 1."""
+    global _ACTIVE_MESH_AXES, _ACTIVE_MESH_SIZES, _ACTIVE_MESH
+    _ACTIVE_MESH_AXES = tuple(axes)
+    _ACTIVE_MESH_SIZES = dict(sizes or {})
+    _ACTIVE_MESH = mesh
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+def data_shards() -> int:
+    """Product of the batch-axis sizes of the active mesh (1 in tests)."""
+    n = 1
+    for a in BATCH_AXES:
+        n *= _ACTIVE_MESH_SIZES.get(a, 1)
+    return n
+
+
+def maybe_constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` against the declared
+    mesh axes: a no-op when none are declared, or when ``x`` is not a
+    DTensor; else ``x`` is redistributed to the named placements (a mesh
+    axis no entry names replicates). Entries may be None / str / tuple;
+    names not on the mesh are dropped."""
+    names = set(_ACTIVE_MESH_AXES)
+    if not names or _ACTIVE_MESH is None:
+        return x
+    if not isinstance(x, DTensor):
+        return x
+
+    def ok(a):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            picked = tuple(x_ for x_ in a if x_ in names)
+            return picked or None
+        return a if a in names else None
+
+    spec = [ok(a) for a in axes]
+    want = tuple(placements_for(spec, x.device_mesh.mesh_dim_names))
+    if want == tuple(x.placements):
+        return x
+    if any(p.is_partial() and w.is_shard()
+           for p, w in zip(x.placements, want)):
+        return _ReduceScatter.apply(x, want)
+    return x.redistribute(x.device_mesh, want)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A pending sum moved straight to a shard (a reduce-scatter), whose
+    backward gathers the gradient whole: DTensor's own backward asks for a
+    shard-to-sum move that older releases refuse."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.back = [Replicate() if p.is_partial() else p
+                    for p in x.placements]
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.back), None
+
+

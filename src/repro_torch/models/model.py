@@ -29,8 +29,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.dtensor import gather_fsdp, is_dtensor, psum, rows_heads
 from . import attention, mlp, moe, ssm, xlstm
-from .common import ParamMeta, ParamTree, init_params, rms_norm
+from .common import (BATCH_AXES, EMBED, LAYER, VOCAB, ParamMeta, ParamTree,
+                     abstract_params, init_params, maybe_constrain, rms_norm)
 from .config import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -116,9 +118,9 @@ def _walk(cfg: ModelConfig, params: Params):
 # --------------------------------------------------------------------------- #
 def _attn_block_tree(cfg: ModelConfig) -> ParamTree:
     d = cfg.d_model
-    t: ParamTree = {ATTN_NORM: ParamMeta((d,), init="ones")}
+    t: ParamTree = {ATTN_NORM: ParamMeta((d,), (EMBED,), init="ones")}
     t.update(attention.attn_params(cfg))
-    t[MLP_NORM] = ParamMeta((d,), init="ones")
+    t[MLP_NORM] = ParamMeta((d,), (EMBED,), init="ones")
     if cfg.is_moe:
         t.update({MOE + k: m for k, m in moe.moe_params(cfg).items()})
     if not cfg.is_moe or cfg.moe_dense_residual:
@@ -132,22 +134,24 @@ def _block_tree(cfg: ModelConfig, kind: str) -> ParamTree:
         return _attn_block_tree(cfg)
     cell = {MAMBA: ssm.ssm_params, MLSTM: xlstm.mlstm_params,
             SLSTM: xlstm.slstm_params}[kind](cfg)
-    return {"norm": ParamMeta((cfg.d_model,), init="ones"), **cell}
+    return {"norm": ParamMeta((cfg.d_model,), (EMBED,), init="ones"),
+            **cell}
 
 
 def param_tree(cfg: ModelConfig) -> ParamTree:
     d, v = cfg.d_model, cfg.vocab_size
-    t: ParamTree = {"tok_embed": ParamMeta((v, d))}
+    t: ParamTree = {"tok_embed": ParamMeta((v, d), (VOCAB, EMBED))}
     for kind, n in kind_counts(cfg).items():
         for k, m in _block_tree(cfg, kind).items():
-            t[PREFIX[kind] + k] = ParamMeta((n,) + m.shape, init=m.init,
+            t[PREFIX[kind] + k] = ParamMeta((n,) + m.shape,
+                                            (LAYER,) + m.axes, init=m.init,
                                             scale=m.scale)
     if num_shared_invocations(cfg):
         for k, m in _attn_block_tree(_shared_cfg(cfg)).items():
             t[f"{SHARED}.{k}"] = m
-    t["final_norm"] = ParamMeta((d,), init="ones")
+    t["final_norm"] = ParamMeta((d,), (EMBED,), init="ones")
     if not cfg.tie_embeddings:
-        t["head"] = ParamMeta((d, v))
+        t["head"] = ParamMeta((d, v), (EMBED, VOCAB))
     return t
 
 
@@ -156,6 +160,11 @@ def init(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
     device = torch.device(device) if device is not None else gen.device
     return init_params(param_tree(cfg), gen, dtype_of(cfg.param_dtype),
                        device)
+
+
+def abstract(cfg: ModelConfig) -> Params:
+    """The parameters as ``meta`` tensors of the param dtype."""
+    return abstract_params(param_tree(cfg), dtype_of(cfg.param_dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,11 +247,36 @@ def seed_cache(cfg: ModelConfig, cache: Cache, prefill_caches: Cache,
 # --------------------------------------------------------------------------- #
 # forward passes
 # --------------------------------------------------------------------------- #
+def _embed_sharded(table, tokens):
+    """The lookup of a DTensor table (V, d), vocab-parallel as Megatron's:
+    in a region each ``model`` rank gathers the tokens of its block of rows
+    (zero for the others) and the partial rows are summed over ``model``;
+    the rows' d is whole, the tokens keep their batch layout.
+    Differentiable."""
+    mesh = table.device_mesh
+    model = mesh.mesh_dim_names.index("model")
+    split = table.shape[0] % mesh.size(model) == 0
+
+    def local(t, tok):
+        rows = t.shape[0]
+        idx = tok.long() - (mesh.get_coordinate()[model] * rows
+                            if split else 0)
+        mine = (idx >= 0) & (idx < rows)
+        x = t[idx.clamp(0, rows - 1)] * mine[..., None].to(t.dtype)
+        return psum(x, mesh, model) if split else x
+
+    return rows_heads(local, (table, tokens), ((None, 0), (0, None)),
+                      ((0, None),), heads=table.shape[0])
+
+
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, with ``embeds`` (B,F,d) (a frontend's precomputed
     patches or frames, cast to the activation dtype) ahead of them."""
-    x = params["tok_embed"][tokens.long()].to(dtype_of(cfg.dtype))
+    table = params["tok_embed"]
+    x = _embed_sharded(table, tokens) if is_dtensor(table) \
+        else table[tokens.long()]
+    x = x.to(dtype_of(cfg.dtype))
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
@@ -250,9 +284,44 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def logits_fn(cfg: ModelConfig, params: Params, x: torch.Tensor
               ) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ head
+    p = gather_fsdp({"norm": params["final_norm"], "head": head})
+    logits = rms_norm(x, p["norm"], cfg.rms_eps) @ p["head"]
+    # batch over (pod, data), vocab over model — keeps CE sharded
+    return maybe_constrain(logits, BATCH_AXES,
+                           *([None] * (logits.dim() - 2)), "model")
+
+
+def _constrain_acts(x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream sharding: batch over (pod,data); sequence over
+    "model" (Megatron-style sequence parallelism) — without it the remat-
+    saved per-layer activations are replicated across the model axis.
+    A no-op without a mesh."""
+    seq = "model" if x.shape[1] > 1 else None
+    return maybe_constrain(x, BATCH_AXES, seq, None)
+
+
+def _whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream with its sequence gathered whole (Megatron's
+    all-gather ahead of the tensor-parallel projections). Each projection
+    flattens (B, S): over two sharded dims that is a strided shard whose
+    offsets DTensor's planner enumerates one symbol an element under
+    ``FakeTensorMode``, so the gather comes before it."""
+    return maybe_constrain(x, BATCH_AXES, None, None)
+
+
+def _block_input(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """A block's normed input, its sequence whole."""
+    return _whole_seq(rms_norm(x, scale, cfg.rms_eps))
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + a block's output y in the residual stream's layout. y (often a
+    pending sum over "model") is laid out first: DTensor's own choice for
+    a sum of a shard and a pending sum is a direct reduce-scatter, whose
+    backward older releases refuse."""
+    return _constrain_acts(x) + _constrain_acts(y)
 
 
 def _ffn(p, cfg, h):
@@ -276,24 +345,26 @@ def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
     """An attention block (an ``A`` layer or the shared block) over a
     sequence; ``prefix`` is its seeded cache row {k, v} or None. Returns
     (x, {k, v} of the call)."""
-    h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
+    p = gather_fsdp(p, skip=MOE)
+    h = _block_input(x, p[ATTN_NORM], cfg)
     y, (k, v) = attention.attn_prefill(
         p, cfg, h, positions, segment_ids=segment_ids, kv_heads=kv_heads,
         prefix_k=None if prefix is None else prefix["k"],
         prefix_v=None if prefix is None else prefix["v"],
         prefix_len=prefix_len, prefix_positions=prefix_positions,
         prefix_segment_ids=prefix_segment_ids)
-    x = x + y
-    y, _ = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
-    return x + y, {"k": k, "v": v}
+    x = _residual(x, y)
+    y, _ = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg))
+    return _residual(x, y), {"k": k, "v": v}
 
 
 def _attn_block_decode(p, cfg, x, pos, ck, cv, kv_heads, active):
+    p = gather_fsdp(p, skip=MOE)
     h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
-    x = x + attention.attn_decode(p, cfg, h, pos, ck, cv, kv_heads=kv_heads,
-                                  active=active)
+    x = _constrain_acts(x + attention.attn_decode(
+        p, cfg, h, pos, ck, cv, kv_heads=kv_heads, active=active))
     y, _ = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
-    return x + y
+    return _constrain_acts(x + y)
 
 
 def _index(sub: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -341,15 +412,17 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     akw = dict(prefix_len=prefix_len, prefix_positions=prefix_positions,
                prefix_segment_ids=prefix_segment_ids)
     for kind, i, p, inv in _walk(cfg, params):
+        x = _constrain_acts(x)
         prefix = None if prefix_caches is None \
             else _index(prefix_caches[kind], i)
         if kind == ATTN:
             x, c = _attn_block_prefill(p, cfg, x, positions, None,
                                        segment_ids, prefix, **akw)
         else:
+            p = gather_fsdp(p)
             y, c = RECURRENT_PREFILL[kind](
-                p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), init=prefix)
-            x = x + y
+                p, cfg, _block_input(x, p["norm"], cfg), init=prefix)
+            x = _residual(x, y)
         outs[kind].append(c)
         if inv is not None:
             scfg = _shared_cfg(cfg)
@@ -364,7 +437,7 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if shared:
         caches[SHARED] = {n: torch.stack([c[n] for c in shared])
                           for n in ("k", "v")}
-    return x, caches
+    return _whole_seq(x), caches
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -418,14 +491,16 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     states alike) and returns (logits (B,V), caches)."""
     x = embed(cfg, params, tokens)
     for kind, i, p, inv in _walk(cfg, params):
+        x = _constrain_acts(x)
         if kind == ATTN:
             x = _attn_block_decode(p, cfg, x, pos, caches[ATTN]["k"][i],
                                    caches[ATTN]["v"][i], None, active)
         else:
             state = _index(caches[kind], i)
+            p = gather_fsdp(p)
             y, new = RECURRENT_DECODE[kind](
                 p, cfg, rms_norm(x, p["norm"], cfg.rms_eps), state)
-            x = x + y
+            x = _constrain_acts(x + y)
             _write_state(state, new, active)
         if inv is not None:
             scfg = _shared_cfg(cfg)
@@ -441,16 +516,18 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def _attn_block_train(p, cfg, x, positions, kv_heads):
     """An attention block of the training forward: (x, MoE aux or None)."""
-    h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
-    x = x + attention.attn_train(p, cfg, h, positions, kv_heads=kv_heads)
-    y, aux = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
-    return x + y, aux
+    p = gather_fsdp(p, skip=MOE)
+    h = _block_input(x, p[ATTN_NORM], cfg)
+    x = _residual(x, attention.attn_train(p, cfg, h, positions,
+                                          kv_heads=kv_heads))
+    y, aux = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg))
+    return _residual(x, y), aux
 
 
 def _recurrent_block_train(p, cfg, x, kind):
-    y, _ = RECURRENT_PREFILL[kind](p, cfg, rms_norm(x, p["norm"],
-                                                    cfg.rms_eps))
-    return x + y
+    p = gather_fsdp(p)
+    y, _ = RECURRENT_PREFILL[kind](p, cfg, _block_input(x, p["norm"], cfg))
+    return _residual(x, y)
 
 
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -475,6 +552,7 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                           preserve_rng_state=False)
 
     for kind, _, p, inv in _walk(cfg, params):
+        x = _constrain_acts(x)
         if kind == ATTN:
             x, a = run(_attn_block_train, p, cfg, x, positions, None)
             if a is not None:
@@ -485,4 +563,4 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             scfg = _shared_cfg(cfg)
             x, _ = run(_attn_block_train, shared_params(params, cfg), scfg,
                        x, positions, scfg.num_kv_heads)
-    return logits_fn(cfg, params, x), aux
+    return logits_fn(cfg, params, _whole_seq(x)), aux

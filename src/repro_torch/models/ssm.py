@@ -18,7 +18,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamMeta, ParamTree, rms_norm
+from ..distributed.dtensor import (blockwise, is_dtensor, merge_heads,
+                                   rows_heads)
+from .common import EMBED, INNER, NUL, ParamMeta, ParamTree, rms_norm
 from .config import ModelConfig
 
 
@@ -37,14 +39,14 @@ def ssm_params(cfg: ModelConfig) -> ParamTree:
     di, nh, n, conv_dim = ssm_dims(cfg)
     w = cfg.ssm_conv_width
     return {
-        "in_proj": ParamMeta((d, 2 * di + 2 * n + nh)),
-        "conv_w": ParamMeta((w, conv_dim), init="small"),
-        "conv_b": ParamMeta((conv_dim,), init="zeros"),
-        "A_log": ParamMeta((nh,), init="ones"),
-        "D": ParamMeta((nh,), init="ones"),
-        "dt_bias": ParamMeta((nh,), init="zeros"),
-        "gate_norm": ParamMeta((di,), init="ones"),
-        "out_proj": ParamMeta((di, d)),
+        "in_proj": ParamMeta((d, 2 * di + 2 * n + nh), (EMBED, INNER)),
+        "conv_w": ParamMeta((w, conv_dim), (NUL, INNER), init="small"),
+        "conv_b": ParamMeta((conv_dim,), (INNER,), init="zeros"),
+        "A_log": ParamMeta((nh,), (NUL,), init="ones"),
+        "D": ParamMeta((nh,), (NUL,), init="ones"),
+        "dt_bias": ParamMeta((nh,), (NUL,), init="zeros"),
+        "gate_norm": ParamMeta((di,), (INNER,), init="ones"),
+        "out_proj": ParamMeta((di, d), (INNER, EMBED)),
     }
 
 
@@ -74,7 +76,6 @@ def ssm_prefill(p, cfg: ModelConfig, u: torch.Tensor, init=None
     hd = cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, S0)
     S = -(-S0 // Q) * Q
-    nc = S // Q
 
     z, xs, Bm, Cm, dt = _split_proj(p, cfg, u)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)                     # (B,S0,conv)
@@ -97,11 +98,29 @@ def ssm_prefill(p, cfg: ModelConfig, u: torch.Tensor, init=None
         dt = dt * (torch.arange(S, device=u.device) < S0)[None, :, None]
     A = -torch.exp(p["A_log"].float())                        # (nh,)
     xh = xs.reshape(B, S, nh, hd).float()
+    h0 = init["h"].float() if init is not None else None
+    args = (xh, dt, A, Bm.float(), Cm.float(), p["D"].float(), h0, Q)
+    if is_dtensor(xh):      # under a mesh: each rank's rows and heads
+        y, h = rows_heads(_ssd, args, ((0, 2), (0, 2), (None, 0), (0, None),
+                                       (0, None), (None, 0), (0, 1), None),
+                          ((0, 2), (0, 1)))
+    else:
+        y, h = _ssd(*args)
+    y = merge_heads(y).to(u.dtype)[:, :S0]
 
-    # chunked SSD
+    y = rms_norm(y * F.silu(z[:, :S0]), p["gate_norm"], cfg.rms_eps)
+    return y @ p["out_proj"], {"h": h, "conv": conv_cache}
+
+
+def _ssd(xh, dt, A, Bm, Cm, D, h0, Q: int):
+    """The chunked SSD over chunks of Q steps: xh (B,S,nh,hd), dt (B,S,nh),
+    A and D (nh,), Bm/Cm (B,S,n) float32; h0 (B,nh,hd,n) or None (zero).
+    Returns (y (B,S,nh,hd), the final state h)."""
+    B, S, nh, hd = xh.shape
+    n, nc = Bm.shape[-1], S // Q
     c = lambda t: t.reshape(B, nc, Q, *t.shape[2:])
     dt_c, x_c = c(dt), c(xh)                                 # (B,nc,Q,nh[,hd])
-    B_c, C_c = c(Bm.float()), c(Cm.float())                  # (B,nc,Q,n)
+    B_c, C_c = c(Bm), c(Cm)                                  # (B,nc,Q,n)
     a_c = dt_c * A                                           # (B,nc,Q,nh)
     a_cum = torch.cumsum(a_c, dim=2)
     L = torch.exp(_segsum(a_c.permute(0, 1, 3, 2)))          # (B,nc,nh,Q,Q)
@@ -117,8 +136,8 @@ def ssm_prefill(p, cfg: ModelConfig, u: torch.Tensor, init=None
         @ B_c[:, :, None]                                    # (B,nc,nh,hd,n)
     chunk_decay = torch.exp(a_cum[:, :, -1, :])              # (B,nc,nh)
 
-    h = init["h"].float() if init is not None else \
-        torch.zeros((B, nh, hd, n), dtype=torch.float32, device=u.device)
+    h = h0 if h0 is not None else \
+        torch.zeros((B, nh, hd, n), dtype=torch.float32, device=xh.device)
     h_prevs = []
     for ci in range(nc):
         h_prevs.append(h)
@@ -130,11 +149,8 @@ def ssm_prefill(p, cfg: ModelConfig, u: torch.Tensor, init=None
     y_off = (h_prevs @ C_c[:, :, None].transpose(-1, -2))    # (B,nc,nh,hd,Q)
     y_off = y_off.permute(0, 1, 4, 2, 3) * in_decay[..., None]
     y = (y_diag.permute(0, 1, 3, 2, 4) + y_off).reshape(B, S, nh, hd) \
-        + p["D"].float()[None, None, :, None] * xh
-    y = y.reshape(B, S, di).to(u.dtype)[:, :S0]
-
-    y = rms_norm(y * F.silu(z[:, :S0]), p["gate_norm"], cfg.rms_eps)
-    return y @ p["out_proj"], {"h": h, "conv": conv_cache}
+        + D[None, None, :, None] * xh
+    return y, h
 
 
 def ssm_decode(p, cfg: ModelConfig, u: torch.Tensor,
@@ -150,7 +166,8 @@ def ssm_decode(p, cfg: ModelConfig, u: torch.Tensor,
     xbc = torch.cat([xs, Bm, Cm], dim=-1)[:, 0]              # (B,conv)
     hist = torch.cat([cache["conv"].to(xbc.dtype), xbc[:, None]], dim=1)
     # the prefill's convention: conv_w[0] weights the newest token
-    conv = (torch.flip(hist, dims=(1,)) * p["conv_w"]).sum(dim=1) \
+    conv = (blockwise(lambda t: torch.flip(t, dims=(1,)), hist, dims=(1,))
+            * p["conv_w"]).sum(dim=1) \
         + p["conv_b"]
     conv = F.silu(conv)
     xs, Bm, Cm = torch.split(conv, [di, n, n], dim=-1)
@@ -163,9 +180,12 @@ def ssm_decode(p, cfg: ModelConfig, u: torch.Tensor,
 
     h = cache["h"] * dA[:, :, None, None] \
         + (dt[:, :, None] * xh)[..., None] * Bf[:, None, None, :]
-    y = (h @ Cf[:, None, :, None])[..., 0] \
-        + p["D"].float()[None, :, None] * xh
-    y = y.reshape(B, 1, di).to(u.dtype)
+    # on a DTensor the contraction over n stays elementwise: a matmul
+    # would flatten (B, nh), sharded over data and model, into one dim
+    hC = (h * Cf[:, None, None, :]).sum(-1) if is_dtensor(h) \
+        else (h @ Cf[:, None, :, None])[..., 0]
+    y = hC + p["D"].float()[None, :, None] * xh
+    y = merge_heads(y).reshape(B, 1, di).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.rms_eps)
     return y @ p["out_proj"], {"h": h, "conv": hist[:, 1:]}
 

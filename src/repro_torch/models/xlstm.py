@@ -14,7 +14,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamMeta, ParamTree, rms_norm
+from ..distributed.dtensor import (blockwise, is_dtensor, merge_heads,
+                                   replicate, rows_heads, split_heads)
+from .common import EMBED, INNER, NUL, ParamMeta, ParamTree, rms_norm
 from .config import ModelConfig
 
 NEG = -1e30
@@ -36,24 +38,23 @@ def mlstm_params(cfg: ModelConfig) -> ParamTree:
     d = cfg.d_model
     di, nh, hd = _dims(cfg)
     return {
-        "wq": ParamMeta((d, di)),
-        "wk": ParamMeta((d, di)),
-        "wv": ParamMeta((d, di)),
-        "wi": ParamMeta((d, nh), init="small"),
-        "wf": ParamMeta((d, nh), init="small"),
-        "bf": ParamMeta((nh,), init="ones"),
-        "wo": ParamMeta((d, di), init="small"),
-        "out_norm": ParamMeta((di,), init="ones"),
-        "down": ParamMeta((di, d)),
+        "wq": ParamMeta((d, di), (EMBED, INNER)),
+        "wk": ParamMeta((d, di), (EMBED, INNER)),
+        "wv": ParamMeta((d, di), (EMBED, INNER)),
+        "wi": ParamMeta((d, nh), (EMBED, NUL), init="small"),
+        "wf": ParamMeta((d, nh), (EMBED, NUL), init="small"),
+        "bf": ParamMeta((nh,), (NUL,), init="ones"),
+        "wo": ParamMeta((d, di), (EMBED, INNER), init="small"),
+        "out_norm": ParamMeta((di,), (INNER,), init="ones"),
+        "down": ParamMeta((di, d), (INNER, EMBED)),
     }
 
 
 def _qkvif(p, cfg, x):
-    B, S, _ = x.shape
     di, nh, hd = _dims(cfg)
-    q = (x @ p["wq"]).reshape(B, S, nh, hd)
-    k = (x @ p["wk"]).reshape(B, S, nh, hd) / math.sqrt(hd)
-    v = (x @ p["wv"]).reshape(B, S, nh, hd)
+    q = split_heads(x @ p["wq"], nh, hd)
+    k = split_heads(x @ p["wk"], nh, hd) / math.sqrt(hd)
+    v = split_heads(x @ p["wv"], nh, hd)
     i_raw = (x @ p["wi"]).float()
     f_raw = (x @ p["wf"] + p["bf"]).float()
     return q, k, v, i_raw, f_raw
@@ -95,6 +96,31 @@ def _mlstm_chunk(state, qc, kc, vc, ic, fc, tri):
     return (C_new, n_new, m_next), y
 
 
+def _mlstm_scan(q, k, v, i_raw, log_f, C0, n0, m0, Q: int):
+    """The chunk loop: q/k/v (B,S,nh,hd), i_raw/log_f (B,S,nh), S a
+    multiple of Q, from the state (C0, n0, m0) (None: the empty memory).
+    Returns (y (B,S,nh,hd) float32, C, n, m)."""
+    B, S, nh, hd = q.shape
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=q.device).tril()
+    if C0 is not None:
+        state = (C0, n0, m0)
+    else:
+        state = (torch.zeros((B, nh, hd, hd), dtype=torch.float32,
+                             device=q.device),
+                 torch.zeros((B, nh, hd), dtype=torch.float32,
+                             device=q.device),
+                 torch.full((B, nh), NEG, dtype=torch.float32,
+                            device=q.device))
+    ys = []
+    for c0 in range(0, S, Q):
+        sl = slice(c0, c0 + Q)
+        state, y = _mlstm_chunk(state, q[:, sl].float(), k[:, sl].float(),
+                                v[:, sl].float(), i_raw[:, sl], log_f[:, sl],
+                                tri)
+        ys.append(y)
+    return (torch.cat(ys, dim=1), *state)
+
+
 def mlstm_prefill(p, cfg: ModelConfig, x: torch.Tensor, init=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunkwise-parallel stabilised mLSTM over chunks of ``ssm_chunk``:
@@ -110,26 +136,17 @@ def mlstm_prefill(p, cfg: ModelConfig, x: torch.Tensor, init=None
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, S - S0)) for t in (q, k, v))
         i_raw = F.pad(i_raw, (0, 0, 0, S - S0), value=NEG)
         f_raw = F.pad(f_raw, (0, 0, 0, S - S0), value=40.0)
-    log_f = F.logsigmoid(f_raw)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    if init is not None:
-        state = (init["C"], init["n"], init["m"])
+    log_f = blockwise(F.logsigmoid, f_raw)
+    init = (init["C"], init["n"], init["m"]) if init is not None \
+        else (None, None, None)
+    args = (q, k, v, i_raw, log_f, *init, Q)
+    if is_dtensor(q):       # under a mesh: each rank's rows and heads
+        y, C, nvec, m_end = rows_heads(
+            _mlstm_scan, args, ((0, 2),) * 3 + ((0, 2),) * 2
+            + ((0, 1),) * 3 + (None,), ((0, 2), (0, 1), (0, 1), (0, 1)))
     else:
-        state = (torch.zeros((B, nh, hd, hd), dtype=torch.float32,
-                             device=x.device),
-                 torch.zeros((B, nh, hd), dtype=torch.float32,
-                             device=x.device),
-                 torch.full((B, nh), NEG, dtype=torch.float32,
-                            device=x.device))
-    ys = []
-    for c0 in range(0, S, Q):
-        sl = slice(c0, c0 + Q)
-        state, y = _mlstm_chunk(state, q[:, sl].float(), k[:, sl].float(),
-                                v[:, sl].float(), i_raw[:, sl], log_f[:, sl],
-                                tri)
-        ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, S, di)[:, :S0].to(x.dtype)
-    C, nvec, m_end = state
+        y, C, nvec, m_end = _mlstm_scan(*args)
+    y = merge_heads(y)[:, :S0].to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.rms_eps)
     y = y * torch.sigmoid(x @ p["wo"])
     return y @ p["down"], {"C": C, "n": nvec, "m": m_end}
@@ -142,7 +159,7 @@ def mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor,
     di, nh, hd = _dims(cfg)
     q, k, v, i_raw, f_raw = _qkvif(p, cfg, x)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-    i_raw, log_f = i_raw[:, 0], F.logsigmoid(f_raw[:, 0])     # (B,nh)
+    i_raw, log_f = i_raw[:, 0], blockwise(F.logsigmoid, f_raw[:, 0])
     m_old, C_old, n_old = cache["m"], cache["C"], cache["n"]
     m_new = torch.maximum(log_f + m_old, i_raw)
     a = torch.exp(log_f + m_old - m_new)                      # (B,nh)
@@ -150,9 +167,11 @@ def mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor,
     C = a[:, :, None, None] * C_old \
         + b[:, :, None, None] * (v[..., :, None] * k[..., None, :])
     n = a[:, :, None] * n_old + b[:, :, None] * k
-    num = (C @ q[..., None])[..., 0]
+    # elementwise on a DTensor (a matmul would flatten the sharded (B, nh))
+    num = (C * q[:, :, None, :]).sum(-1) if is_dtensor(C) \
+        else (C @ q[..., None])[..., 0]
     den = torch.maximum((n * q).sum(dim=-1).abs(), torch.exp(-m_new))[..., None]
-    y = (num / torch.clamp(den, min=1e-6)).reshape(B, 1, di).to(x.dtype)
+    y = merge_heads(num / torch.clamp(den, min=1e-6))[:, None].to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.rms_eps)
     y = y * torch.sigmoid(x @ p["wo"])
     return y @ p["down"], {"C": C, "n": n, "m": m_new}
@@ -175,12 +194,19 @@ def slstm_params(cfg: ModelConfig) -> ParamTree:
     d = cfg.d_model
     di, nh, hd = _dims(cfg)
     return {
-        "w_in": ParamMeta((d, 4 * di)),
-        "r": ParamMeta((nh, hd, 4 * hd), init="small"),
-        "b": ParamMeta((4 * di,), init="zeros"),
-        "out_norm": ParamMeta((di,), init="ones"),
-        "down": ParamMeta((di, d)),
+        "w_in": ParamMeta((d, 4 * di), (EMBED, INNER)),
+        "r": ParamMeta((nh, hd, 4 * hd), (NUL, NUL, INNER), init="small"),
+        "b": ParamMeta((4 * di,), (INNER,), init="zeros"),
+        "out_norm": ParamMeta((di,), (INNER,), init="ones"),
+        "down": ParamMeta((di, d), (INNER, EMBED)),
     }
+
+
+def _whole_r(p):
+    """The recurrent kernel ``r`` (nh, hd, 4hd) whole on every rank under a
+    mesh: its spec shards the last dim, and the step's product would
+    then flatten (nh, 4hd) with the inner dim sharded."""
+    return dict(p, r=replicate(p["r"]))
 
 
 def _slstm_step(p, cfg, xt, state):
@@ -188,12 +214,12 @@ def _slstm_step(p, cfg, xt, state):
     di, nh, hd = _dims(cfg)
     B = xt.shape[0]
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    rec = (h.reshape(B, nh, hd).to(xt.dtype).transpose(0, 1) @ p["r"]
+    rec = (split_heads(h, nh, hd).to(xt.dtype).transpose(0, 1) @ p["r"]
            ).transpose(0, 1).reshape(B, 4 * di)
     zifo = (xt + rec).float() + p["b"].float()
     z, i_raw, f_raw, o = torch.split(zifo, di, dim=-1)
     z = torch.tanh(z)
-    log_f = F.logsigmoid(f_raw)
+    log_f = blockwise(F.logsigmoid, f_raw)
     m_new = torch.maximum(log_f + m, i_raw)
     a = torch.exp(log_f + m - m_new)
     b = torch.exp(i_raw - m_new)
@@ -220,18 +246,32 @@ def slstm_prefill(p, cfg: ModelConfig, x: torch.Tensor, init=None
     B, S, _ = x.shape
     xproj = x @ p["w_in"]                                     # (B,S,4di)
     state = init if init is not None else slstm_init_cache(cfg, B, x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(p, cfg, xproj[:, t], state)
-        hs.append(state["h"])
-    y = torch.stack(hs, dim=1).to(x.dtype)                    # (B,S,di)
+    names = ("c", "n", "h", "m")
+
+    def scan(xproj, r, b, *st):
+        st = dict(zip(names, st))
+        hs = []
+        for t in range(S):
+            st = _slstm_step({"r": r, "b": b}, cfg, xproj[:, t], st)
+            hs.append(st["h"])
+        return (torch.stack(hs, dim=1), *(st[k] for k in names))
+
+    args = (xproj, p["r"], p["b"], *(state[k] for k in names))
+    if is_dtensor(xproj):   # under a mesh: each rank's rows, every head
+        y, *st = rows_heads(scan, args, ((0, None), (None, None),
+                                         (None, None)) + ((0, None),) * 4,
+                            ((0, None),) * 5)
+    else:
+        y, *st = scan(*args)
+    state = dict(zip(names, st))
+    y = y.to(x.dtype)                                         # (B,S,di)
     y = rms_norm(y, p["out_norm"], cfg.rms_eps)
     return y @ p["down"], state
 
 
 def slstm_decode(p, cfg: ModelConfig, x: torch.Tensor, cache
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    state = _slstm_step(p, cfg, (x @ p["w_in"])[:, 0], cache)
+    state = _slstm_step(_whole_r(p), cfg, (x @ p["w_in"])[:, 0], cache)
     y = state["h"][:, None].to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.rms_eps)
     return y @ p["down"], state

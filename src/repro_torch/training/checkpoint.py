@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..distributed.dtensor import is_dtensor
 from ..models.weights import JAX_TO_PORT, jax_names
 
 # parameter names themselves contain "/", so nested-dict paths are joined
@@ -73,11 +74,22 @@ def _port_names(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {JAX_TO_PORT[k]: v for k, v in flat.items()}
 
 
+def _full(tree):
+    """DTensor leaves as full tensors (a collective every rank joins)."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    return tree.full_tensor() if is_dtensor(tree) else tree
+
+
 def save(path: str, params: Dict[str, torch.Tensor],
          opt_state: Dict[str, Any] | None = None,
          meta: Dict[str, Any] | None = None) -> None:
     """Write port params (and an optimizer state, and scalars in ``meta``)
-    under the reference's names."""
+    under the reference's names. DTensors are gathered whole on every rank
+    (each rank must call ``save``) and rank 0 writes the file."""
+    params, opt_state = _full(params), _full(opt_state)
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload: Dict[str, Any] = {"params": jax_names(params)}
     if opt_state is not None:

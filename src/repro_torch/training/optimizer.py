@@ -9,6 +9,13 @@ stored in ``state_dtype`` and params cast back to their own dtype.
 widths a second copy of the float32 moments would not fit beside the
 first. It works through large leaves a block of rows at a time, which
 changes no number (every operation but the norm is elementwise).
+
+On DTensor params (a mesh) the moments share each param's placements,
+each gradient is laid out as its param, and the updates run in place on
+every rank's local block (``to_local()``). The global norm sums each
+rank's local squares once per block: a rank adds a param's squares only
+where it is the first replica along every mesh dim that replicates the
+param, and one functional all-reduce a mesh dim sums the rest.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.dtensor import all_reduce_sum, is_dtensor
 from ..models.model import dtype_of
 
 Params = Dict[str, torch.Tensor]
@@ -38,7 +46,7 @@ class AdamWConfig:
 
 def init_state(params: Params, cfg: AdamWConfig) -> Dict:
     dt = dtype_of(cfg.state_dtype)
-    z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    z = lambda p: torch.zeros_like(p, dtype=dt)     # a DTensor keeps its layout
     dev = next(iter(params.values())).device
     return {"m": {k: z(p) for k, p in params.items()},
             "v": {k: z(p) for k, p in params.items()},
@@ -50,13 +58,34 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
+def _sharded_sq_norm(params: Params, grads: Params) -> torch.Tensor:
+    """The squared global norm of DTensor ``grads`` laid out as ``params``
+    (each block counted once), on every rank."""
+    mesh = next(iter(params.values())).device_mesh
+    coord = mesh.get_coordinate()
+    sq = torch.zeros((), dtype=torch.float32,
+                     device=next(iter(grads.values())).to_local().device)
+    for k, g in grads.items():
+        if all(coord[md] == 0 for md, pl in enumerate(params[k].placements)
+               if not pl.is_shard()):
+            sq = sq + torch.sum(torch.square(g.to_local().float()))
+    for md in range(mesh.ndim):
+        sq = all_reduce_sum(sq, mesh, md)
+    return sq
+
+
 @torch.no_grad()
 def apply_updates(params: Params, grads: Params, state: Dict,
                   cfg: AdamWConfig) -> Tuple[Params, Dict, torch.Tensor]:
     """Returns (params, state, grad_norm); ``params`` and the moments of
     ``state`` are updated in place, ``step`` is a new tensor."""
     step = state["step"] + 1
-    sq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+    if any(is_dtensor(p) for p in params.values()):
+        grads = {k: g.redistribute(params[k].device_mesh, params[k].placements)
+                 for k, g in grads.items()}
+        sq = _sharded_sq_norm(params, grads)
+    else:
+        sq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip \
@@ -79,8 +108,13 @@ def apply_updates(params: Params, grads: Params, state: Dict,
         m.copy_(m32.to(dt))
         v.copy_(v32.to(dt))
 
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
     for k, p in params.items():
-        leaves = (p, grads[k], state["m"][k], state["v"][k])
+        leaves = tuple(local(a) for a in (p, grads[k], state["m"][k],
+                                          state["v"][k]))
+        p = leaves[0]
         rows = max(1, BLOCK // max(1, p[0].numel())) if p.dim() else 1
         if p.dim() == 0 or p.shape[0] <= rows:
             upd(*leaves)

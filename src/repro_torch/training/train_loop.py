@@ -9,7 +9,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
+from ..distributed import sharding as shd
+from ..distributed.dtensor import is_dtensor
 from ..models import model
 from ..models.common import cross_entropy
 from ..models.config import ModelConfig
@@ -76,17 +79,26 @@ def batch_to(batch: Dict[str, np.ndarray], cfg: ModelConfig, device
     return out
 
 
+def _value(t: torch.Tensor) -> float:
+    return float(t.full_tensor() if is_dtensor(t) else t)
+
+
 def train(cfg: ModelConfig, steps: int, *, opt: Optional[AdamWConfig] = None,
           batch_size: int = 8, seq_len: int = 128, seed: int = 0,
-          log_every: int = 10, callback=None, device=None):
-    """Single-device training loop on seeded random weights and the
-    synthetic data; on the card unless ``device`` says otherwise. Returns
-    (params, opt_state, history)."""
+          log_every: int = 10, callback=None, device=None, mesh=None):
+    """Training loop on seeded random weights and the synthetic data; on
+    the card unless ``device`` says otherwise. With a ``DeviceMesh`` (the
+    caller declares its axes, ``common.set_mesh_axes``) the params and
+    moments are DTensors under ``sharding.param_specs`` and each batch is
+    split over the batch axes; every rank draws the same weights and
+    batches. Returns (params, opt_state, history)."""
     from .data import DataConfig, SyntheticDataset
 
     opt = opt or AdamWConfig()
     dev = torch.device(device if device is not None else "cuda")
     params = model.init(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    if mesh is not None:
+        params = shd.shard_params(params, cfg, mesh)
     opt_state = init_state(params, opt)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       batch_size=batch_size, seed=seed,
@@ -98,10 +110,18 @@ def train(cfg: ModelConfig, steps: int, *, opt: Optional[AdamWConfig] = None,
     for i, batch in enumerate(ds.batches()):
         if i >= steps:
             break
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             batch_to(batch, cfg, dev))
+        batch = batch_to(batch, cfg, dev)
+        if mesh is None:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        else:
+            rows = (shd.batch_axes(mesh),)
+            batch = {k: shd.shard_tensor(v, rows + (None,) * (v.dim() - 1),
+                                         mesh) for k, v in batch.items()}
+            with implicit_replication():
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
         if i % log_every == 0 or i == steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: _value(v) for k, v in metrics.items()}
             history.append({"step": i, **m})
             if callback:
                 callback(i, m)

@@ -27,8 +27,11 @@ COPIED = ([f"core/{m}.py" for m in ("request", "kvc", "ordering",
           + [f"configs/{p.name}"
              for p in sorted((REF / "configs").glob("*.py"))
              if p.name != "__init__.py"])
-# copied but for the named top-level definitions
-COPIED_EXCEPT = {"cluster/faults.py": {"corrupt_payload"}}
+# copied but for the named top-level definitions (``__doc__`` the module
+# docstring, a constant by its name)
+COPIED_EXCEPT = {"cluster/faults.py": {"corrupt_payload"},
+                 "launch/analytic.py": {"__doc__", "PEAK_FLOPS", "HBM_BW",
+                                        "LINK_BW", "CHIPS"}}
 
 
 def _port_files():
@@ -79,7 +82,9 @@ def test_every_reference_config_is_copied():
 
 def _definitions(text: str):
     """Source text of each top-level definition, a class's methods keyed
-    ``Class.method`` (decorators and inner comments included)."""
+    ``Class.method`` (decorators and inner comments included); an
+    assignment to one name is keyed by the name, the module docstring by
+    ``__doc__``."""
     lines = text.splitlines(keepends=True)
 
     def src(node):
@@ -90,6 +95,12 @@ def _definitions(text: str):
     out = {}
     for i, node in enumerate(ast.parse(text).body):
         name = getattr(node, "name", None) or f"<statement {i}>"
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            name = node.targets[0].id
+        elif i == 0 and isinstance(node, ast.Expr) \
+                and isinstance(node.value, ast.Constant):
+            name = "__doc__"
         out[name] = src(node)
         if isinstance(node, ast.ClassDef):
             for sub in node.body:
