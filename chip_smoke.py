@@ -11,12 +11,19 @@ and run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh.
 Phases (any failure raises and exits non-zero):
   1. card: require CUDA, print the name and power limit (nvidia-smi);
   2. build both kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
-     print build seconds and ptxas registers / shared memory;
+     print build seconds and ptxas registers / shared memory; fail if
+     ptxas serialises a wgmma of the flash kernel or the SASS of a
+     ``flash_bf16_kernel`` instance lacks HGMMA (wgmma) or UTMALDG (TMA);
+     print the bf16 flash plan (tiles, stages, shared memory) of each
+     serving shape;
   3. each kernel against its plain PyTorch version on the card, float32
      (TF32 off, tol 1e-4) and bfloat16 (one bf16 ulp, see ``TOL``), at the
      test sweeps, at tile and split edges (segments across tile edges,
      chunks over mostly invalid slots, rows that see no key, contexts at
-     split boundaries +-1 and 0), at hd 96, 112 and 160 with G = 1 and
+     split boundaries +-1 and 0), at the bf16 flash kernel's 64- and
+     128-row tiles (both forced through its plan: segments across a
+     128-row edge, Sq and Sk not multiples of 128, hd 112 and 160 causal
+     and over a prefix), at hd 96, 112 and 160 with G = 1 and
      G = 4 (flash causal and over a prefix; decode at ctx 0, 1, page and
      split edges +-1, full), and at the serving paths' shapes (qwen3:
      packed prefill, a chunk over a cache row, a packed chunk wave, decode
@@ -25,7 +32,8 @@ Phases (any failure raises and exits non-zero):
      under the 8192 window with G = 4, decode over four full 8192-slot
      rings; phi3-vision: causal prefill (2, 1152, 32, 96)); at those nine,
      time kernel, plain version and one library call (SDPA, bool mask,
-     ``enable_gqa``) with CUDA events, each rotating over copies of its
+     ``enable_gqa``), and each flash shape also under the other q tile,
+     with CUDA events, each rotating over copies of its
      inputs so that every call finds them cold in L2, and compute each
      kernel's bound from the call's inputs; and phase 12b's shapes:
      causal (1, 32768, 32, 128) (held to the plain version on all 64
@@ -133,6 +141,8 @@ zamba2 shapes, every timed shape under ``shapes``); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import re
@@ -191,6 +201,71 @@ def phase_build() -> None:
         for fn, u in zip(re.findall(r"Compiling entry function '(\w+)'",
                                     rec["ptxas"]), usage):
             log(f"[2 build]   {fn}: {u}")
+    _check_flash_build(build, info["flash_prefill"]["ptxas"])
+
+
+# a wgmma that ptxas serialises (warnings C7510-C7520) waits for each
+# product before the next: the kernel would run, slowly, on no pipeline
+WGMMA_SERIAL = "wgmma.mma_async instructions are serialized"
+
+
+def _check_flash_build(build, ptxas: str) -> None:
+    """The bf16 flash kernel is the wgmma / TMA one: ptxas serialises no
+    wgmma, and the SASS of every ``flash_bf16_kernel`` instance holds
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads). Prints each instance's
+    registers and spills, and the plan (tiles, stages, shared memory) of
+    each serving shape."""
+    from repro_torch.kernels.flash_prefill import plan
+    serial = [ln for ln in ptxas.splitlines() if WGMMA_SERIAL in ln]
+    if serial:
+        raise AssertionError("ptxas serialises wgmma in the flash kernel:\n"
+                             + "\n".join(serial))
+    names = re.findall(r"Compiling entry function '(\w+)'", ptxas)
+    spills = re.findall(r"(\d+) bytes spill stores", ptxas)
+    regs = re.findall(r"Used (\d+) registers", ptxas)
+    for fn, sp, rg in zip(names, spills, regs):
+        m = re.search(r"flash_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)", fn)
+        if m:
+            log(f"[2 build]   bf16 hd {m[1]}, {64 * int(m[2])} q rows, "
+                f"{m[3]} keys: {rg} registers at launch, {sp} bytes spilled")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._target("flash_prefill"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1] if "flash_bf16_kernel" in m[1] else None
+            if fn:
+                found[fn] = set()
+        elif fn:
+            found[fn] |= {op for op in ("HGMMA", "UTMALDG") if op in line}
+    missing = [f for f, ops in found.items() if ops != {"HGMMA", "UTMALDG"}]
+    if not found or missing:
+        raise AssertionError(f"flash_bf16_kernel without HGMMA / UTMALDG in "
+                             f"its SASS: {missing or 'no instance found'}")
+    log(f"[2 build]   SASS: {len(found)} flash_bf16_kernel instances, each "
+        f"with HGMMA and UTMALDG")
+    for label, shape, kw in FLASH_PLAN_SHAPES:
+        p = plan(*shape, **kw)
+        log(f"[2 build]   plan {label}: {p['block_q']} q rows x "
+            f"{p['block_k']} keys, {p['stages']} stages, "
+            f"{p['threads']} threads, {p['smem']} bytes of shared memory")
+
+
+# (B, Sq, Sk, H, hd) and mask modes of the serving path's flash calls
+FLASH_PLAN_SHAPES = [
+    ("packed prefill", (1, 2048, 2048, 32, 128), dict(segments=True)),
+    ("chunk", (1, 512, 2560, 32, 128), dict(positions=True)),
+    ("chunk wave", (1, 1152, 6528, 32, 128),
+     dict(positions=True, segments=True)),
+    ("zamba2", (1, 1536, 1536, 32, 112), {}),
+    ("mistral-nemo", (1, 10240, 10240, 32, 128), {}),
+    ("phi3-vision", (2, 1152, 1152, 32, 96), {}),
+    ("prefill_32k", (1, 32768, 32768, 32, 128), {}),
+]
 
 
 # --------------------------------------------------------------------------- #
@@ -353,6 +428,74 @@ def _flash_cases(torch, dtype, gen):
                dict(q_positions=qpos, kv_positions=kpos))
 
 
+def _flash_wide_cases(torch, dtype, gen):
+    """Yield (label, q, k, v, kwargs) at the edges of the bf16 kernel's
+    128-row, 128-key tiles: segments across a 128-row edge, Sq and Sk not
+    multiples of 128 (positions, with and without a window), a chunk wave
+    whose chunks cross 128-row edges, and hd 112 and 160 (whose last
+    64-wide TMA box is partial) causal and over a prefix."""
+    from repro_torch.kernels.ref import POS_INVALID
+    from repro_torch.models.attention import chunk_kv_masks
+    from repro_torch.serving.engine import packed_chunk_layout
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def prefix(C, S, plen):
+        slot = torch.arange(C, device=dev)
+        kpos = torch.cat([torch.where(slot < plen, slot, POS_INVALID),
+                          plen + torch.arange(S, device=dev)])[None].int()
+        return (plen + torch.arange(S, device=dev))[None].int(), kpos
+
+    lens = (120, 17, 130, 60, 2)
+    seg = torch.repeat_interleave(torch.arange(5, device=dev),
+                                  torch.tensor(lens, device=dev))[None].int()
+    yield (f"segments {lens} across 128-row edges hd128",
+           rnd(1, 329, 8, 128), rnd(1, 329, 2, 128), rnd(1, 329, 2, 128),
+           dict(segment_ids=seg))
+    for win in (None, 96):
+        qpos, kpos = prefix(300, 141, 250)
+        yield (f"positions Sq 141 Sk 441 plen 250 win{win} hd128",
+               rnd(1, 141, 8, 128), rnd(1, 441, 2, 128),
+               rnd(1, 441, 2, 128),
+               dict(window=win, q_positions=qpos, kv_positions=kpos))
+    starts, clens = (130, 0, 700), (150, 129, 61)
+    pos, sg, ppos, pseg, _ = packed_chunk_layout(starts, clens, 1024)
+    pos, sg = torch.from_numpy(pos).to(dev), torch.from_numpy(sg).to(dev)
+    kpos, kseg = chunk_kv_masks(1, ppos.shape[1], pos, sg,
+                                prefix_positions=torch.from_numpy(ppos).to(
+                                    dev),
+                                prefix_segment_ids=torch.from_numpy(
+                                    pseg).to(dev))
+    T, Sk = sum(clens), kpos.shape[1]
+    yield (f"chunk wave starts {starts} lens {clens} hd128",
+           rnd(1, T, 8, 128), rnd(1, Sk, 2, 128), rnd(1, Sk, 2, 128),
+           dict(segment_ids=sg, kv_segment_ids=kseg, q_positions=pos,
+                kv_positions=kpos))
+    for hd in (112, 160):
+        for H, K in ((4, 4), (8, 2)):
+            yield (f"causal hd{hd} H{H} K{K} S 200", rnd(1, 200, H, hd),
+                   rnd(1, 200, K, hd), rnd(1, 200, K, hd), {})
+        qpos, kpos = prefix(200, 141, 150)
+        yield (f"positions hd{hd} Sq 141 Sk 341 plen 150",
+               rnd(1, 141, 8, hd), rnd(1, 341, 2, hd), rnd(1, 341, 2, hd),
+               dict(q_positions=qpos, kv_positions=kpos))
+
+
+@contextlib.contextmanager
+def _flash_plan(**force):
+    """The flash wrapper's plan with some of its choices forced (``block_q``:
+    64 or 128 q rows), so that small check cases reach both tile sizes."""
+    from repro_torch.kernels import flash_prefill as fp
+    chosen = fp.plan
+    fp.plan = functools.partial(chosen, **force)
+    try:
+        yield
+    finally:
+        fp.plan = chosen
+
+
 def _decode_edge_cases(torch, dtype, gen):
     """Yield (label, q, k_pages, v_pages, block_tables, context_lens) at
     contexts on the split boundaries +-1, ctx 0, page edges +-1, and a row
@@ -444,6 +587,14 @@ def phase_kernels(torch, seed: int) -> dict:
         for label, q, k, v, kw in _flash_cases(torch, dtype, gen):
             _check(torch, f"flash {label}", flash_attention(q, k, v, **kw),
                    ref.flash_attention(q, k, v, **kw), dn, flash_errs)
+        for bq in ((64,) if dtype == torch.float32 else (64, 128)):
+            with _flash_plan(block_q=bq):
+                for label, q, k, v, kw in _flash_wide_cases(torch, dtype,
+                                                            gen):
+                    _check(torch, f"flash {bq}-row tiles {label}",
+                           flash_attention(q, k, v, **kw),
+                           ref.flash_attention(q, k, v, **kw), dn,
+                           flash_errs)
         for B, H, K, hd, page, MP in [(3, 8, 2, 64, 16, 5),
                                       (2, 4, 4, 128, 32, 4),
                                       (1, 8, 1, 64, 8, 7),
@@ -523,6 +674,7 @@ def phase_kernels(torch, seed: int) -> dict:
         pairs = int(mask.sum())
         ints = sum(t.numel() for t in kw.values()
                    if isinstance(t, torch.Tensor))
+        plan = _plan_of(q, k, kw)
         rec = _measure(
             torch, f"flash {label}", (q, k, v),
             lambda q, k, v: flash_attention(q, k, v, **kw),
@@ -531,8 +683,11 @@ def phase_kernels(torch, seed: int) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask[:, None], enable_gqa=True),
             flops=4.0 * pairs * Hq * hdq,
-            nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * ints)
-        flash_recs.append(dict(rec, shape=label, max_abs_err=flash_errs[-1]))
+            nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * ints,
+            other=_other_tiles(plan, kw))
+        plan["other_block_q_ms"] = rec.pop("other_ms")
+        flash_recs.append(dict(rec, shape=label, max_abs_err=flash_errs[-1],
+                               plan=plan))
 
     flash_recs.append(_flash_long(torch, gen, flash_errs))
 
@@ -555,6 +710,26 @@ def phase_kernels(torch, seed: int) -> dict:
         "paged_decode": dict(paged_recs[-1], max_abs_err_all=max(paged_errs),
                              shapes=paged_recs),
     }
+
+
+def _other_tiles(plan: dict, kw: dict):
+    """The flash kernel on the same call with the other q tile (64 <-> 128
+    rows): what the plan's choice is measured against."""
+    from repro_torch.kernels.flash_prefill import flash_attention
+
+    def run(q, k, v):
+        with _flash_plan(block_q=192 - plan["block_q"]):
+            return flash_attention(q, k, v, **kw)
+    return run
+
+
+def _plan_of(q, k, kw) -> dict:
+    """The bf16 kernel's tiles and stages for this call."""
+    from repro_torch.kernels.flash_prefill import plan
+    p = plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+             positions=kw.get("q_positions") is not None,
+             segments=kw.get("segment_ids") is not None)
+    return {key: p[key] for key in ("block_q", "block_k", "stages")}
 
 
 def _flash_long(torch, gen, flash_errs: list) -> dict:
@@ -611,6 +786,9 @@ def _flash_long(torch, gen, flash_errs: list) -> dict:
                    s[2].transpose(1, 2), is_causal=True, enable_gqa=True)
                for s in sets], 5),
            "copies": n}
+    plan = _plan_of(q, k, {})
+    plan["other_block_q_ms"] = _time_ms(
+        torch, [lambda s=s: _other_tiles(plan, {})(*s) for s in sets], 5)
     del sets
     pairs = S * (S + 1) // 2
     rec.update(_bound(4.0 * pairs * H * hd,
@@ -620,8 +798,9 @@ def _flash_long(torch, gen, flash_errs: list) -> dict:
     log(f"[3 kernels] flash {label} bf16 timing ({n} input copies): kernel "
         f"{rec['ms']:.4f} ms, plain not measured (its scores do not fit), "
         f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms"
-        f" ({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound")
-    return dict(rec, shape=label, max_abs_err=flash_errs[-1])
+        f" ({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound; "
+        f"under the other plan {plan['other_block_q_ms']:.4f} ms")
+    return dict(rec, shape=label, max_abs_err=flash_errs[-1], plan=plan)
 
 
 def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
@@ -694,11 +873,12 @@ def _flash_mask(torch, B: int, Sq: int, Sk: int, kw: dict):
 
 
 def _measure(torch, label, inputs, kernel, plain, library, *, flops,
-             nbytes, iters: int = 20) -> dict:
+             nbytes, iters: int = 20, other=None) -> dict:
     """Time the kernel, its plain version and one library call on the
     same inputs, each rotating over enough copies of ``inputs`` that every
     call finds them cold in L2; the bound from this call's flops and
-    bytes."""
+    bytes. ``other``, if given, is the kernel under another plan, timed
+    likewise (``other_ms``)."""
     n = _copies(sum(t.numel() * t.element_size() for t in inputs))
     sets = [inputs] + [tuple(t.clone() for t in inputs)
                        for _ in range(n - 1)]
@@ -709,13 +889,18 @@ def _measure(torch, label, inputs, kernel, plain, library, *, flops,
            "library_ms": _time_ms(torch, [lambda s=s: library(*s)
                                           for s in sets], iters),
            "copies": n}
+    if other is not None:
+        rec["other_ms"] = _time_ms(torch, [lambda s=s: other(*s)
+                                           for s in sets], iters)
     del sets
     rec.update(_bound(flops, nbytes, "bfloat16"))
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     log(f"[3 kernels] {label} bf16 timing ({n} input copies, cold L2): "
         f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
         f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound")
+        f"({rec['bound_by']}), {100 * rec['share_of_bound']:.1f}% of bound"
+        + (f"; under the other plan {rec['other_ms']:.4f} ms"
+           if other is not None else ""))
     return rec
 
 
@@ -777,6 +962,7 @@ def phase_main_path(torch, seed: int) -> dict:
     # an older checkout (``--profile-src``) has no combine kernel
     has_combine = hasattr(paged_decode_attention, "combine_launches")
     flash_attention.launches = 0
+    flash_attention.plans = {}
     paged_decode_attention.launches = 0
     if has_combine:
         paged_decode_attention.combine_launches = 0
@@ -817,6 +1003,9 @@ def phase_main_path(torch, seed: int) -> dict:
     toks = sum(len(g.output) for g in reqs)
     res = {
         "wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
+        # bf16 flash launches by (q rows, keys, stages) of their plan
+        "flash_plans": {"x".join(map(str, k)): n
+                        for k, n in flash_attention.plans.items()},
         "decode_iters": eng.decode_iters,
         "decode_dispatches": eng.n_decode_dispatches,
         "mega_windows": eng.n_mega_windows,
@@ -2103,7 +2292,8 @@ def main(argv=None) -> int:
              "library_ms", "share_of_bound")},
          "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms",
-                                       "share_of_bound", "max_abs_err")}
+                                       "share_of_bound", "max_abs_err",
+                                       "plan")}
                     for r in kern["flash_prefill"]["shapes"]]},
         {"name": "paged_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",

@@ -4,8 +4,9 @@ sources, on one card, in turns (kernel, variant, variant, kernel).
     python3 scripts/kernel_variants.py
 
 The variant rounds the softmax weights P to bf16 and multiplies them once
-(the ``pl`` MMAs of both kernels removed), where the kernels split P into
-bf16 hi + lo and multiply twice. For each side it prints the worst bf16
+(the lo products of both kernels removed: the flash kernel's ``al``
+wgmma, the decode kernel's two ``pl`` MMAs), where the kernels split P
+into bf16 hi + lo and multiply twice. For each side it prints the worst bf16
 error of phase 3's check cases as a share of ``chip_smoke.TOL`` (a share
 above 1 fails the check) and the device ms at the serving shapes beside
 SDPA's, timed as phase 3 times them (inputs cold in L2, CUDA-graph
@@ -24,22 +25,31 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-LO_MMA = re.compile(r".*mma_bf16\(acc\[2 \* np(?: \+ 1)?\], pl,.*\n")
+# each kernel's lines that multiply the lo half of P, and how many there are
+LO_MMA = {
+    "flash_prefill": (re.compile(r".*wgmma::RS<HD>::mma\(acc, al, dv, 1\);\n"),
+                      1),
+    "paged_decode": (re.compile(
+        r".*mma_bf16\(acc\[2 \* np(?: \+ 1)?\], pl,.*\n"), 2),
+}
 
 
 def build_variant(build, name: str) -> ctypes.CDLL:
-    """The kernel ``name`` with its lo MMAs removed, built beside the
-    others."""
+    """The kernel ``name`` with its lo products removed, built beside the
+    others (headers from ``csrc/``)."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    var, n = LO_MMA.subn("", src)
-    if n != 2:
-        raise RuntimeError(f"{name}.cu: expected 2 lo MMAs, found {n}")
+    pattern, want = LO_MMA[name]
+    var, n = pattern.subn("", src)
+    if n != want:
+        raise RuntimeError(f"{name}.cu: expected {want} lo products, "
+                           f"found {n}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = build.BUILD_DIR / f"{name}-bf16p.cu"
     so = cu.with_suffix(".so")
     cu.write_text(var)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(cu)], check=True, capture_output=True, text=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so), str(cu)], check=True,
+                   capture_output=True, text=True)
     return ctypes.CDLL(str(so))
 
 
@@ -71,6 +81,12 @@ def main() -> int:
         fl += [share(flash_attention(q, k, v, **kw),
                      ref.flash_attention(q, k, v, **kw))
                for _, (q, k, v, kw) in cs._main_chunk_cases(torch, g)]
+        for bq in (64, 128):            # both of the flash kernel's tiles
+            with cs._flash_plan(block_q=bq):
+                fl += [share(flash_attention(q, k, v, **kw),
+                             ref.flash_attention(q, k, v, **kw))
+                       for _, q, k, v, kw in cs._flash_wide_cases(
+                           torch, torch.bfloat16, g)]
         dc = [share(paged_decode_attention(q, kp, vp, bt, cl),
                     ref.paged_decode_attention(q, kp, vp, bt, cl))
               for _, q, kp, vp, bt, cl in cs._decode_edge_cases(
@@ -103,7 +119,8 @@ def main() -> int:
         out = {}
         for label, (q, k, v, kw) in shapes:
             sets = rotation((q, k, v))
-            mask = cs._flash_mask(torch, q.shape[1], k.shape[1], kw)
+            mask = cs._flash_mask(torch, q.shape[0], q.shape[1], k.shape[1],
+                                  kw)
             out[label] = (
                 cs._time_ms(torch, [lambda s=s: flash_attention(*s, **kw)
                                     for s in sets]),

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (loaded with ``ctypes``), under
 ``build/kernels/`` at the root of the checkout. The file name carries a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
+of the source, of every ``csrc/`` header it includes (``#include "..."``,
+followed through headers) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. The libraries link no
+driver library: the flash kernel's tensor maps come from the driver through
+``cudaGetDriverEntryPoint``. ``build_all`` starts one ``nvcc`` per
 source, all at once. A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,10 +47,29 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` files it includes, directly or
+    through another, in the order first met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (CSRC / inc).is_file()]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):

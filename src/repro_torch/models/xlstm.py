@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..distributed.dtensor import (blockwise, is_dtensor, merge_heads,
                                    replicate, rows_heads, split_heads)
+from ..kernels import traced
 from .common import EMBED, INNER, NUL, ParamMeta, ParamTree, rms_norm
 from .config import ModelConfig
 
@@ -250,6 +251,13 @@ def slstm_prefill(p, cfg: ModelConfig, x: torch.Tensor, init=None
 
     def scan(xproj, r, b, *st):
         st = dict(zip(names, st))
+        if traced(xproj):
+            # a FakeTensorMode trace (the dry-run) takes the body once, as
+            # lax.scan traces it: y is empty, the state has one step's
+            # shapes; S fake steps of every layer would take minutes
+            st = _slstm_step({"r": r, "b": b}, cfg, xproj[:, 0], st)
+            y = st["h"].new_empty((xproj.shape[0], S, st["h"].shape[-1]))
+            return (y, *(st[k] for k in names))
         hs = []
         for t in range(S):
             st = _slstm_step({"r": r, "b": b}, cfg, xproj[:, t], st)

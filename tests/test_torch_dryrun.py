@@ -118,3 +118,71 @@ def test_reduced_steps_trace_on_a_4x4_fake_mesh(records, arch, kind):
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     if kind == "decode":
         assert m["alias"] > 0               # the caches, updated in place
+
+
+# --------------------------------------------------------------------------- #
+# the sLSTM scan under fake tensors (xlstm-125m's prefill_32k)
+# --------------------------------------------------------------------------- #
+def _slstm_inputs(cfg, S: int, seed: int = 0):
+    import torch
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import init_params
+    gen = torch.Generator().manual_seed(seed)
+    p = init_params(xlstm.slstm_params(cfg), gen, torch.float32, "cpu")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, S, cfg.d_model))
+                         .astype(np.float32))
+    return p, x
+
+
+def test_slstm_prefill_traces_32k_steps_once_under_fake_tensors():
+    """The dry-run's xlstm-125m prefill_32k: the scan traces its body once
+    (as ``lax.scan`` does), so a 32768-step sLSTM layer traces in seconds
+    and gives the real call's shapes and dtypes."""
+    import time
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import xlstm
+    cfg = get_config("xlstm-125m")
+    S = 32768
+    t0 = time.monotonic()
+    with FakeTensorMode():
+        p = {k: torch.empty(m.shape) for k, m in
+             xlstm.slstm_params(cfg).items()}
+        y, st = xlstm.slstm_prefill(p, cfg, torch.empty(1, S, cfg.d_model))
+    assert time.monotonic() - t0 < 30
+    di = xlstm._dims(cfg)[0]
+    assert tuple(y.shape) == (1, S, cfg.d_model) and y.dtype == torch.float32
+    assert {k: tuple(v.shape) for k, v in st.items()} == {
+        k: (1, di) for k in ("c", "n", "h", "m")}
+
+
+def test_slstm_prefill_real_tensors_keep_the_loop():
+    """Real tensors still run every step: the output and state equal a
+    plain loop of ``_slstm_step``, and the fake trace of the same call has
+    their shapes and dtypes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import rms_norm
+    cfg = get_config("xlstm-125m").reduced()
+    S = 37
+    p, x = _slstm_inputs(cfg, S)
+    y, st = xlstm.slstm_prefill(p, cfg, x)
+    state = xlstm.slstm_init_cache(cfg, 2)
+    hs = []
+    for t in range(S):
+        state = xlstm._slstm_step(p, cfg, (x @ p["w_in"])[:, t], state)
+        hs.append(state["h"])
+    want = rms_norm(torch.stack(hs, 1), p["out_norm"], cfg.rms_eps) \
+        @ p["down"]
+    torch.testing.assert_close(y, want, atol=0, rtol=0)
+    for k in ("c", "n", "h", "m"):
+        torch.testing.assert_close(st[k], state[k], atol=0, rtol=0)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fy, fst = xlstm.slstm_prefill(
+            {k: mode.from_tensor(v) for k, v in p.items()}, cfg,
+            mode.from_tensor(x))
+    assert fy.shape == y.shape and fy.dtype == y.dtype
+    assert {k: (v.shape, v.dtype) for k, v in fst.items()} == {
+        k: (v.shape, v.dtype) for k, v in st.items()}

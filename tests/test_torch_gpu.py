@@ -332,6 +332,51 @@ def test_flash_tile_edges(card, dtype):
                                     kv_positions=kpos), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_flash_wgmma_tile_edges(card, dtype, block_q, monkeypatch):
+    """The bf16 kernel's 64- and 128-row tiles (forced through the plan, so
+    that small calls reach both): segments across a 128-row edge, Sq and
+    Sk not multiples of 128 (positions, with and without a window), and hd
+    112 and 160, whose last 64-wide TMA box is partial, causal and over a
+    prefix."""
+    import functools
+    from repro_torch.kernels import flash_prefill as fp
+    monkeypatch.setattr(fp, "plan", functools.partial(fp.plan,
+                                                      block_q=block_q))
+    g = card
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+    def prefix(C, S, plen):
+        slot = torch.arange(C, device="cuda")
+        kpos = torch.cat([torch.where(slot < plen, slot, POS_INVALID),
+                          plen + torch.arange(S, device="cuda")])[None]
+        return (plen + torch.arange(S, device="cuda"))[None].int(), \
+            kpos.int()
+
+    cases = []
+    lens = (120, 17, 130, 60, 2)
+    seg = torch.repeat_interleave(torch.arange(5), torch.tensor(lens))
+    cases.append(((1, 329, 8, 2, 128), 329,
+                  dict(segment_ids=seg[None].int().cuda())))
+    for win in (None, 96):
+        qpos, kpos = prefix(300, 141, 250)
+        cases.append(((1, 141, 8, 2, 128), 441,
+                      dict(window=win, q_positions=qpos, kv_positions=kpos)))
+    for hd in (112, 160):
+        for H, K in ((4, 4), (8, 2)):
+            cases.append(((1, 200, H, K, hd), 200, {}))
+        qpos, kpos = prefix(200, 141, 150)
+        cases.append(((1, 141, 8, 2, hd), 341,
+                      dict(q_positions=qpos, kv_positions=kpos)))
+    before = flash_attention.launches
+    for (B, Sq, H, K, hd), Sk, kw in cases:
+        q, k, v = rnd(B, Sq, H, hd), rnd(B, Sk, K, hd), rnd(B, Sk, K, hd)
+        _close(flash_attention(q, k, v, **kw),
+               ref.flash_attention(q, k, v, **kw), dtype)
+    assert flash_attention.launches == before + len(cases)
+
+
 # --------------------------------------------------------------------- #
 # KV migration and the fleet on the card
 # --------------------------------------------------------------------- #

@@ -5,10 +5,13 @@ against the plain versions in ``repro_torch.kernels.ref`` (and so, through
 * the split-KV decode kernel: float32 partials (m, l, acc) of each key
   range that ``plan_splits`` gives, merged by log-sum-exp;
 * the flash kernel's tile skipping (``tile_plan``, the kernel's pre-pass
-  rule in plain PyTorch): every tile it skips is fully masked, every tile
-  it marks full has no masked pair, and attention over the kept tiles
-  only, with the kernel's rule for rows that see no key, equals the plain
-  version.
+  rule in plain PyTorch, at the tile sizes the kernel runs: 64 q rows a
+  consumer warpgroup, 64 or 128 keys, as ``flash_prefill.plan`` picks
+  them): every tile it skips is fully masked, every tile it marks full has
+  no masked pair, and attention over the kept tiles only, with the
+  kernel's rule for rows that see no key, equals the plain version;
+* the bf16 kernel's launch plan (``flash_prefill.plan``) against the
+  card's shared memory and wgmma's shapes, for every config's head dim.
 
 Inputs are made with numpy from a seed; everything runs in float32."""
 import inspect
@@ -20,7 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.flash_prefill import TILE  # noqa: E402
+from repro_torch.kernels.flash_prefill import TILE, plan  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     SPLIT_ALIGN, plan_splits)
 from repro_torch.kernels.ref import NEG_INF, POS_INVALID  # noqa: E402
@@ -122,13 +125,19 @@ def test_split_kv_model_matches_plain(B, H, K, hd, page, MP, softcap):
 # --------------------------------------------------------------------------- #
 # flash tile skipping
 # --------------------------------------------------------------------------- #
-def _minmax(x: torch.Tensor, valid: torch.Tensor, n: int):
-    """Per tile of TILE along dim 1: min and max of x over valid entries
+# (q rows, keys) of the tiles the kernels skip by: the float32 kernel's and
+# the bf16 kernel's one-consumer tiles, and the bf16 two-consumer tiles
+# (each consumer skips by its 64 rows)
+KERNEL_TILES = ((TILE, TILE), (TILE, 2 * TILE))
+
+
+def _minmax(x: torch.Tensor, valid: torch.Tensor, n: int, tile: int = TILE):
+    """Per tile of ``tile`` along dim 1: min and max of x over valid entries
     (min > max where a tile has none), shapes (B, n)."""
     B, S = x.shape
-    pad = n * TILE - S
-    x = torch.nn.functional.pad(x, (0, pad)).reshape(B, n, TILE)
-    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(B, n, TILE)
+    pad = n * tile - S
+    x = torch.nn.functional.pad(x, (0, pad)).reshape(B, n, tile)
+    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(B, n, tile)
     big = torch.iinfo(torch.int32).max
     lo = torch.where(valid, x, big).amin(-1)
     hi = torch.where(valid, x, -big - 1).amax(-1)
@@ -136,11 +145,13 @@ def _minmax(x: torch.Tensor, valid: torch.Tensor, n: int):
 
 
 def tile_plan(Sq, Sk, *, causal=True, window=None, segment_ids=None,
-              kv_segment_ids=None, q_positions=None, kv_positions=None):
+              kv_segment_ids=None, q_positions=None, kv_positions=None,
+              q_tile=TILE, k_tile=TILE):
     """The pre-pass rule of ``kernels/csrc/flash_prefill.cu`` in plain
-    PyTorch. Returns (keep, full), both (B, nq, nk) bool: keep where the
-    kernel loads and computes k tile j for q tile i, full where it also
-    skips the masks. A tile is skipped when it has no valid key, lies
+    PyTorch, for q tiles of ``q_tile`` rows and k tiles of ``k_tile`` keys
+    (the kernel combines its 64-row, 64-key pre-pass ranges into these).
+    Returns (keep, full), both (B, nq, nk) bool: keep where the kernel
+    computes k tile j for q tile i, full where it also skips the masks. A tile is skipped when it has no valid key, lies
     wholly above the causal diagonal, wholly before the window of the q
     tile's least position, or has a segment range disjoint from the q
     tile's; it is full when every key is valid, below every q position,
@@ -149,7 +160,7 @@ def tile_plan(Sq, Sk, *, causal=True, window=None, segment_ids=None,
     for a in (segment_ids, kv_segment_ids, q_positions, kv_positions):
         if a is not None:
             B = max(B, a.shape[0])
-    nq, nk = -(-Sq // TILE), -(-Sk // TILE)
+    nq, nk = -(-Sq // q_tile), -(-Sk // k_tile)
     qp = torch.arange(Sq)[None].expand(B, Sq) if q_positions is None \
         else q_positions.long().expand(B, Sq)
     kp = torch.arange(Sk)[None].expand(B, Sk) if kv_positions is None \
@@ -161,12 +172,12 @@ def tile_plan(Sq, Sk, *, causal=True, window=None, segment_ids=None,
     ks_src = kv_segment_ids if kv_segment_ids is not None else segment_ids
     ks = torch.zeros(B, Sk, dtype=torch.int64) if ks_src is None \
         else ks_src.long().expand(B, Sk)
-    qp_lo, qp_hi = _minmax(qp, qvalid, nq)
-    qs_lo, qs_hi = _minmax(qs, qvalid, nq)
-    kp_lo, kp_hi = _minmax(kp, kvalid, nk)
-    ks_lo, ks_hi = _minmax(ks, kvalid, nk)
-    kall = torch.nn.functional.pad(kvalid, (0, nk * TILE - Sk)).reshape(
-        B, nk, TILE).all(-1)
+    qp_lo, qp_hi = _minmax(qp, qvalid, nq, q_tile)
+    qs_lo, qs_hi = _minmax(qs, qvalid, nq, q_tile)
+    kp_lo, kp_hi = _minmax(kp, kvalid, nk, k_tile)
+    ks_lo, ks_hi = _minmax(ks, kvalid, nk, k_tile)
+    kall = torch.nn.functional.pad(kvalid, (0, nk * k_tile - Sk)).reshape(
+        B, nk, k_tile).all(-1)
     keep = (kp_lo <= kp_hi)[:, None, :].expand(B, nq, nk).clone()
     full = kall[:, None, :].expand(B, nq, nk).clone()
     if causal:
@@ -203,13 +214,13 @@ def _mask(Sq, Sk, causal=True, window=None, segment_ids=None,
     return mask
 
 
-def skipped_flash(q, k, v, keep, mask):
+def skipped_flash(q, k, v, keep, mask, q_tile=TILE, k_tile=TILE):
     """Attention over the kept tiles only, as the kernel runs it; a row
     that sees no key gets the mean of V over all keys."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
-    cols = keep.repeat_interleave(TILE, 1).repeat_interleave(TILE, 2)
+    cols = keep.repeat_interleave(q_tile, 1).repeat_interleave(k_tile, 2)
     cols = cols[:, :Sq, :Sk]
     x = torch.einsum("bskgh,btkh->bkgst", q.reshape(B, Sq, K, G, hd), k)
     x = x / math.sqrt(hd)
@@ -265,27 +276,28 @@ LAYOUTS = list(_layouts())
 @pytest.mark.parametrize("label,Sq,Sk,kw", LAYOUTS,
                          ids=[lay[0] for lay in LAYOUTS])
 def test_skipped_tiles_are_fully_masked(label, Sq, Sk, kw):
-    keep, full = tile_plan(Sq, Sk, **kw)
-    mask = _mask(Sq, Sk, **kw)
-    B = keep.shape[0]
-    mask = mask.expand(B, Sq, Sk)
-    nq, nk = keep.shape[1:]
-    pad = torch.zeros(B, nq * TILE, nk * TILE, dtype=torch.bool)
-    pad[:, :Sq, :Sk] = mask
-    tiles = pad.reshape(B, nq, TILE, nk, TILE)
-    any_pair = tiles.any(4).any(2)
-    assert not (any_pair & ~keep).any(), label
-    # a full tile: every (valid query row, key) pair unmasked
-    rows = torch.zeros(nq * TILE, dtype=torch.bool)
-    rows[:Sq] = True
-    rows = rows.reshape(nq, TILE)[None, :, :, None, None]
-    all_pair = (tiles | ~rows).all(4).all(2)
-    assert not (full & ~all_pair).any(), label
-    # the rule is not vacuous where the masks leave whole tiles empty
-    if "chunk wave starts (1792" in label or "(256, 256" in label:
-        assert keep.float().mean() < 0.5
-    if "plen1024" in label:             # the prefix of a chunk needs no mask
-        assert full.sum() >= 16 * 8
+    for tq, tk in KERNEL_TILES:
+        keep, full = tile_plan(Sq, Sk, q_tile=tq, k_tile=tk, **kw)
+        mask = _mask(Sq, Sk, **kw)
+        B = keep.shape[0]
+        mask = mask.expand(B, Sq, Sk)
+        nq, nk = keep.shape[1:]
+        pad = torch.zeros(B, nq * tq, nk * tk, dtype=torch.bool)
+        pad[:, :Sq, :Sk] = mask
+        tiles = pad.reshape(B, nq, tq, nk, tk)
+        any_pair = tiles.any(4).any(2)
+        assert not (any_pair & ~keep).any(), (label, tq, tk)
+        # a full tile: every (valid query row, key) pair unmasked
+        rows = torch.zeros(nq * tq, dtype=torch.bool)
+        rows[:Sq] = True
+        rows = rows.reshape(nq, tq)[None, :, :, None, None]
+        all_pair = (tiles | ~rows).all(4).all(2)
+        assert not (full & ~all_pair).any(), (label, tq, tk)
+        # the rule is not vacuous where the masks leave whole tiles empty
+        if "chunk wave starts (1792" in label or "(256, 256" in label:
+            assert keep.float().mean() < 0.5
+        if "plen1024" in label:         # the prefix of a chunk needs no mask
+            assert full.sum() >= (1024 // tk) * (512 // tq)
 
 
 @pytest.mark.parametrize("label,Sq,Sk,kw", LAYOUTS,
@@ -296,10 +308,11 @@ def test_attention_over_kept_tiles_equals_plain(label, Sq, Sk, kw):
     q = _t(rng.standard_normal((B, Sq, 2, 32)))
     k = _t(rng.standard_normal((B, Sk, 1, 32)))
     v = _t(rng.standard_normal((B, Sk, 1, 32)))
-    keep, _ = tile_plan(Sq, Sk, **kw)
-    got = skipped_flash(q, k, v, keep, _mask(Sq, Sk, **kw))
     want = ref.flash_attention(q, k, v, **kw)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for tq, tk in KERNEL_TILES:
+        keep, _ = tile_plan(Sq, Sk, q_tile=tq, k_tile=tk, **kw)
+        got = skipped_flash(q, k, v, keep, _mask(Sq, Sk, **kw), tq, tk)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_row_with_no_valid_key_gets_the_mean_of_v():
