@@ -12,10 +12,12 @@ Phases (any failure raises and exits non-zero):
   1. card: require CUDA, print the name and power limit (nvidia-smi);
   2. build both kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
      print build seconds and ptxas registers / shared memory; fail if
-     ptxas serialises a wgmma of the flash kernel or the SASS of a
-     ``flash_bf16_kernel`` instance lacks HGMMA (wgmma) or UTMALDG (TMA);
-     print the bf16 flash plan (tiles, stages, shared memory) of each
-     serving shape;
+     ptxas serialises a wgmma of either kernel, if a bf16 decode instance
+     spills, or if the SASS of a ``flash_bf16_kernel`` or
+     ``paged_decode_bf16_kernel`` instance lacks HGMMA (wgmma) or UTMALDG
+     (TMA); print the bf16 flash plan (tiles, stages, shared memory) of
+     each serving shape and the decode plan (splits, CTAs an SM, waves,
+     stages, boxes) of each serving decode shape;
   3. each kernel against its plain PyTorch version on the card, float32
      (TF32 off, tol 1e-4) and bfloat16 (one bf16 ulp, see ``TOL``), at the
      test sweeps, at tile and split edges (segments across tile edges,
@@ -33,6 +35,9 @@ Phases (any failure raises and exits non-zero):
      rings; phi3-vision: causal prefill (2, 1152, 32, 96)); at those nine,
      time kernel, plain version and one library call (SDPA, bool mask,
      ``enable_gqa``), and each flash shape also under the other q tile,
+     and log each decode shape's plan and the decode wrapper's host
+     microseconds a call (the least of 30 runs of 100 calls without a
+     sync),
      with CUDA events, each rotating over copies of its
      inputs so that every call finds them cold in L2, and compute each
      kernel's bound from the call's inputs; and phase 12b's shapes:
@@ -143,6 +148,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import math
 import re
@@ -202,11 +208,49 @@ def phase_build() -> None:
                                     rec["ptxas"]), usage):
             log(f"[2 build]   {fn}: {u}")
     _check_flash_build(build, info["flash_prefill"]["ptxas"])
+    _check_decode_build(build, info["paged_decode"]["ptxas"])
 
 
 # a wgmma that ptxas serialises (warnings C7510-C7520) waits for each
 # product before the next: the kernel would run, slowly, on no pipeline
 WGMMA_SERIAL = "wgmma.mma_async instructions are serialized"
+
+
+def _no_serial_wgmma(name: str, ptxas: str) -> None:
+    serial = [ln for ln in ptxas.splitlines() if WGMMA_SERIAL in ln]
+    if serial:
+        raise AssertionError(f"ptxas serialises wgmma in the {name} "
+                             f"kernel:\n" + "\n".join(serial))
+
+
+def _ptxas_usage(ptxas: str):
+    """(entry function, registers, spill store bytes, spill load bytes) of
+    each function ptxas compiled."""
+    names = re.findall(r"Compiling entry function '(\w+)'", ptxas)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", ptxas)
+    regs = re.findall(r"Used (\d+) registers", ptxas)
+    return [(fn, int(rg), int(st), int(ld))
+            for fn, (st, ld), rg in zip(names, spills, regs)]
+
+
+def _sass_ops(build, name: str, kernel: str, ops) -> dict:
+    """{instance of ``kernel``: the ops of ``ops`` in its SASS} of the
+    library ``name``."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1] if kernel in m[1] else None
+            if fn:
+                found[fn] = set()
+        elif fn:
+            found[fn] |= {op for op in ops if op in line}
+    return found
 
 
 def _check_flash_build(build, ptxas: str) -> None:
@@ -216,32 +260,14 @@ def _check_flash_build(build, ptxas: str) -> None:
     registers and spills, and the plan (tiles, stages, shared memory) of
     each serving shape."""
     from repro_torch.kernels.flash_prefill import plan
-    serial = [ln for ln in ptxas.splitlines() if WGMMA_SERIAL in ln]
-    if serial:
-        raise AssertionError("ptxas serialises wgmma in the flash kernel:\n"
-                             + "\n".join(serial))
-    names = re.findall(r"Compiling entry function '(\w+)'", ptxas)
-    spills = re.findall(r"(\d+) bytes spill stores", ptxas)
-    regs = re.findall(r"Used (\d+) registers", ptxas)
-    for fn, sp, rg in zip(names, spills, regs):
+    _no_serial_wgmma("flash", ptxas)
+    for fn, rg, sp, _ in _ptxas_usage(ptxas):
         m = re.search(r"flash_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)", fn)
         if m:
             log(f"[2 build]   bf16 hd {m[1]}, {64 * int(m[2])} q rows, "
                 f"{m[3]} keys: {rg} registers at launch, {sp} bytes spilled")
-    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build._target("flash_prefill"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    found, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m[1] if "flash_bf16_kernel" in m[1] else None
-            if fn:
-                found[fn] = set()
-        elif fn:
-            found[fn] |= {op for op in ("HGMMA", "UTMALDG") if op in line}
+    found = _sass_ops(build, "flash_prefill", "flash_bf16_kernel",
+                      ("HGMMA", "UTMALDG"))
     missing = [f for f, ops in found.items() if ops != {"HGMMA", "UTMALDG"}]
     if not found or missing:
         raise AssertionError(f"flash_bf16_kernel without HGMMA / UTMALDG in "
@@ -253,6 +279,55 @@ def _check_flash_build(build, ptxas: str) -> None:
         log(f"[2 build]   plan {label}: {p['block_q']} q rows x "
             f"{p['block_k']} keys, {p['stages']} stages, "
             f"{p['threads']} threads, {p['smem']} bytes of shared memory")
+
+
+def _check_decode_build(build, ptxas: str) -> None:
+    """The bf16 decode kernel is the TMA / wgmma one: ptxas serialises no
+    wgmma and spills nothing in any ``paged_decode_bf16_kernel`` instance,
+    and the SASS of each holds ``UTMALDG`` (TMA loads) and ``HGMMA``
+    (wgmma). Prints each instance's registers and the plan of each serving
+    decode shape."""
+    from repro_torch.kernels.paged_attention import plan
+    _no_serial_wgmma("paged_decode", ptxas)
+    spilled = []
+    for fn, rg, st, ld in _ptxas_usage(ptxas):
+        m = re.search(r"paged_decode_bf16_kernelILi(\d+)ELi(\d+)", fn)
+        if m:
+            log(f"[2 build]   decode bf16 hd {m[1]}, up to {m[2]} heads a "
+                f"kv head: {rg} registers, {st} / {ld} bytes spill stores "
+                f"/ loads")
+            if st or ld:
+                spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"paged_decode_bf16_kernel spills: {spilled}")
+    found = _sass_ops(build, "paged_decode", "paged_decode_bf16_kernel",
+                      ("HGMMA", "UTMALDG"))
+    missing = [f for f, ops in found.items() if ops != {"HGMMA", "UTMALDG"}]
+    # 6 head dims x 3 builds (up to 4, 8, 16 heads a kv head)
+    if len(found) != 18 or missing:
+        raise AssertionError(f"paged_decode_bf16_kernel without HGMMA / "
+                             f"UTMALDG in its SASS: "
+                             f"{missing or f'{len(found)} instances'}")
+    log(f"[2 build]   SASS: {len(found)} paged_decode_bf16_kernel "
+        f"instances, each with HGMMA and UTMALDG")
+    for label, shape in DECODE_PLAN_SHAPES:
+        log(f"[2 build]   decode plan {label}: {_plan_line(plan(*shape))}")
+
+
+def _plan_line(p: dict) -> str:
+    return (f"{p['n_split']} splits of {p['split']} keys, {p['grid']} CTAs "
+            f"at {p['ctas_per_sm']} an SM ({p['waves']:.3f} waves), "
+            f"{p['stages']} stages of {p['tile']} keys, boxes of {p['box']} "
+            f"rows, {p['smem']} bytes of shared memory")
+
+
+# (B, H, K, hd, capacity, page) of the serving path's decode calls
+DECODE_PLAN_SHAPES = [
+    ("full rings (4,8192,8,128) H32", (4, 32, 8, 128, 8192, 8192)),
+    ("decode_32k (8,32768,8,128) H32", (8, 32, 8, 128, 32768, 32768)),
+    ("rows (8,2048,8,128) H32", (8, 32, 8, 128, 2048, 2048)),
+    ("zamba2 (8,2048,32,112) H32", (8, 32, 32, 112, 2048, 2048)),
+]
 
 
 # (B, Sq, Sk, H, hd) and mask modes of the serving path's flash calls
@@ -501,7 +576,7 @@ def _decode_edge_cases(torch, dtype, gen):
     contexts on the split boundaries +-1, ctx 0, page edges +-1, and a row
     ending in the first split beside a full one: at hd 128 (G = 4), and at
     each new head dim with G = 1 and G = 4."""
-    from repro_torch.kernels.paged_attention import _sm_count, plan_splits
+    from repro_torch.kernels.paged_attention import _sm_count, plan
     page, MP = 16, 64
     cap = page * MP
 
@@ -511,7 +586,8 @@ def _decode_edge_cases(torch, dtype, gen):
     for hd, H, K in [(128, 16, 4)] + [(hd, H, K) for hd in HEAD_DIMS_NEW
                                       for H, K in ((4, 4), (16, 4))]:
         B = 4
-        split, n = plan_splits(B, K, cap, _sm_count(0))
+        p = plan(B, H, K, hd, cap, page, _sm_count(0))
+        split, n = p["split"], p["n_split"]
         P = B * MP + 2
         q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
         bt = torch.randperm(P, device="cuda", generator=gen)[
@@ -810,7 +886,8 @@ def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
     table, then time kernel, plain version and SDPA in bf16."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_attention import (
+        _sm_count, paged_decode_attention, plan)
     dt = torch.bfloat16
     B = ctx.shape[0]
     ck = torch.randn(B, C, K, hd, generator=gen, device="cuda").to(dt)
@@ -836,6 +913,10 @@ def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
     dmask = (torch.arange(C, device="cuda")[None] < ctx[:, None].long())
     toks = int(ctx.sum())
     label = f"({B},{C},{K},{hd}) H{H} ctx {ctx.tolist()}"
+    p = plan(B, H, K, hd, C, C, _sm_count(0))
+    host_us = _host_us(torch, lambda: ops.decode_attention(qd, ck, cv, ctx))
+    log(f"[3 kernels] paged_decode {label} plan: {_plan_line(p)}; wrapper "
+        f"{host_us:.2f} us a call on the host")
     rec = _measure(
         torch, f"paged_decode {label}", (qd, ck, cv),
         lambda q, k, v: ops.decode_attention(q, k, v, ctx),
@@ -847,7 +928,33 @@ def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
         flops=4.0 * toks * H * hd,
         nbytes=2.0 * (2 * toks * K * hd + 2 * qd.numel()) + 4.0 * B,
         iters=50)
-    return dict(rec, shape=label, max_abs_err=err)
+    return dict(rec, shape=label, max_abs_err=err, host_us=host_us,
+                plan={k: p[k] for k in ("split", "n_split", "ctas_per_sm",
+                                        "waves", "stages", "box")})
+
+
+def _host_us(torch, call, n: int = 100, batches: int = 30) -> float:
+    """Host microseconds a call of ``call`` (the wrapper's Python, its
+    tensor setup and the launch through ctypes): the least over
+    ``batches`` runs of ``n`` calls without a sync, each few enough that
+    the launch queue never fills and blocks. The host is shared, and a
+    run that a neighbour slowed says nothing of the wrapper: the least is
+    what the wrapper itself costs."""
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    per_call = []
+    gc.disable()
+    try:
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            per_call.append((time.perf_counter() - t0) / n)
+            torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return 1e6 * min(per_call)
 
 
 def _flash_mask(torch, B: int, Sq: int, Sk: int, kw: dict):
@@ -959,11 +1066,15 @@ def phase_main_path(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # an older checkout (``--profile-src``) has no combine kernel
+    # an older checkout (``--profile-src``) has no combine kernel, or one
+    # that follows every launch (no ``plan``: its bf16 kernel does not
+    # merge its own splits)
     has_combine = hasattr(paged_decode_attention, "combine_launches")
+    merges = hasattr(sys.modules[paged_decode_attention.__module__], "plan")
     flash_attention.launches = 0
     flash_attention.plans = {}
     paged_decode_attention.launches = 0
+    paged_decode_attention.plans = {}
     if has_combine:
         paged_decode_attention.combine_launches = 0
     t0 = time.monotonic()
@@ -987,8 +1098,10 @@ def phase_main_path(torch, seed: int) -> dict:
         if n <= 0 or n % L:
             raise AssertionError(f"{name}: {n} launches, not a positive "
                                  f"multiple of {L}")
+    combines = _combines(cfg.dtype, launches["paged_decode"]) if merges \
+        else launches["paged_decode"]
     if launches["paged_decode"] != L * eng.decode_iters \
-            or combine not in (None, launches["paged_decode"]):
+            or combine not in (None, combines):
         raise AssertionError(
             f"paged_decode: {launches['paged_decode']} launches and {combine}"
             f" combines for {eng.decode_iters} decode iterations of {L} "
@@ -1015,6 +1128,9 @@ def phase_main_path(torch, seed: int) -> dict:
         "sync_counts": dict(eng.sync_counts),
         "launches": launches,
         "paged_decode_combine_launches": combine,
+        # bf16 decode launches by (split, splits, stages, box) of their plan
+        "decode_plans": {"x".join(map(str, k)): n for k, n in getattr(
+            paged_decode_attention, "plans", {}).items()},
     }
     log(f"[4 main] {json.dumps(res)}")
     params = eng.params
@@ -1338,12 +1454,21 @@ def _zero_launches() -> None:
     flash_attention.launches = 0
     paged_decode_attention.launches = 0
     paged_decode_attention.combine_launches = 0
+    paged_decode_attention.plans = {}
 
 
-def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
+def _combines(dtype: str, decodes: int) -> int:
+    """Combine launches that ``decodes`` decode launches in ``dtype``
+    make: one each in float32, none in bf16 (its kernel merges its splits
+    itself)."""
+    return decodes if dtype == "float32" else 0
+
+
+def _read_launches(tag: str, L: int, dtype: str, decode_iters=None) -> dict:
     """The counts since ``_zero_launches``: flash a positive multiple of
-    the depth, decode a multiple with one combine each, and, when the
-    path's windows all ran to their end, depth x decode iterations."""
+    the depth, decode a multiple with its combines (``_combines``), and,
+    when the path's windows all ran to their end, depth x decode
+    iterations."""
     from repro_torch.kernels.flash_prefill import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     n = {"flash_prefill": flash_attention.launches,
@@ -1353,7 +1478,7 @@ def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
         raise AssertionError(f"[{tag}] flash_prefill: {n} launches, not a "
                              f"positive multiple of {L}")
     if n["paged_decode"] <= 0 or n["paged_decode"] % L \
-            or n["combine"] != n["paged_decode"]:
+            or n["combine"] != _combines(dtype, n["paged_decode"]):
         raise AssertionError(f"[{tag}] paged_decode: {n}")
     if decode_iters is not None and n["paged_decode"] != L * decode_iters:
         raise AssertionError(f"[{tag}] paged_decode: {n['paged_decode']} "
@@ -1394,7 +1519,7 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = _read_launches(tag, n_attn or L, eng.decode_iters)
+    launches = _read_launches(tag, n_attn or L, cfg.dtype, eng.decode_iters)
     for g in reqs:
         if g.status != "completed" or \
                 len(g.output) != g.params.max_new_tokens:
@@ -1470,7 +1595,8 @@ def phase_kv_roundtrip(torch, cfg, params, seed: int) -> dict:
     if g.status != "completed" or len(g.output) != 32:
         raise AssertionError(f"[6a] B did not finish the request: "
                              f"{g.status}, {len(g.output)}/32 tokens")
-    launches = _read_launches("6a", L, a.decode_iters + b.decode_iters)
+    launches = _read_launches("6a", L, cfg.dtype,
+                              a.decode_iters + b.decode_iters)
     image_mb = sum(t.numel() * t.element_size()
                    for t in payload["kv"][ATTN].values()) / 1e6
     res = {"ctx": ctx, "image_mb": image_mb, "export_s": t_export,
@@ -1499,7 +1625,7 @@ def phase_fleet_run(torch, smi: str, cfg, params, seed: int, roles) -> dict:
     wall = time.monotonic() - t0
     engines = [i.engine for i in fleet.instances]
     iters = sum(e.decode_iters for e in engines)
-    launches = _read_launches(tag, L, iters)
+    launches = _read_launches(tag, L, cfg.dtype, iters)
     for g in reqs:
         if g.status != "completed" or \
                 len(g.output) != g.params.max_new_tokens:
@@ -1574,7 +1700,7 @@ def phase_chaos(torch, cfg, params, seed: int) -> dict:
     torch.cuda.synchronize()
     # a kill can cut a megastep window short: its launched iterations are
     # never replayed, so decode launches are checked as a multiple only
-    launches = _read_launches("6d chaos", cfg.num_layers)
+    launches = _read_launches("6d chaos", cfg.num_layers, cfg.dtype)
     for i, (g, r) in enumerate(zip(reqs, ref_reqs)):
         if g.output != r.output:
             j = next((j for j, (x, y) in enumerate(zip(g.output, r.output))
@@ -1666,7 +1792,7 @@ def phase_zamba_parity(torch, seed: int) -> dict:
     _zero_launches()
     _, params = phase_parity(torch, seed, cfg, "7b")
     del params
-    launches = _read_launches("7b", 2)
+    launches = _read_launches("7b", 2, cfg.dtype)
     return {"seconds": time.monotonic() - t0, "launches": launches}
 
 
@@ -1770,7 +1896,7 @@ def phase_moe_parity(torch, seed: int) -> dict:
     _, params = phase_parity(torch, seed, cfg, "8b")
     del params
     return {"seconds": time.monotonic() - t0,
-            "launches": _read_launches("8b", cfg.num_layers)}
+            "launches": _read_launches("8b", cfg.num_layers, cfg.dtype)}
 
 
 def _ring_workload(cfg, seed: int):
@@ -1831,7 +1957,7 @@ def phase_ring_parity(torch, seed: int) -> dict:
                              lens=[(8300, 24), (8700, 24)])
     del params
     return {"seconds": time.monotonic() - t0,
-            "launches": _read_launches("9b", cfg.num_layers)}
+            "launches": _read_launches("9b", cfg.num_layers, cfg.dtype)}
 
 
 def phase_embeds(torch, seed: int) -> dict:
@@ -1867,7 +1993,7 @@ def phase_embeds(torch, seed: int) -> dict:
                                   cache)
         errs.append((lg - full[:, F + S + t]).abs().max().item())
     torch.cuda.synchronize()
-    launches = _read_launches("10", cfg.num_layers, T)
+    launches = _read_launches("10", cfg.num_layers, cfg.dtype, T)
     res = {"max_abs_err_prefill": errs[0], "max_abs_err_decode": max(errs[1:]),
            "launches": launches, "seconds": time.monotonic() - t0}
     if not all(math.isfinite(e) and e < 2e-3 for e in errs):
@@ -2169,7 +2295,7 @@ def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
                  "combine": paged_decode_attention.combine_launches}
             want = {"flash_prefill": 0 if decode else L,
                     "paged_decode": L if decode else 0,
-                    "combine": L if decode else 0}
+                    "combine": _combines(cfg.dtype, L) if decode else 0}
             if n != want:
                 raise AssertionError(f"[12b {name}] launches {n}, want "
                                      f"{want}")
@@ -2307,7 +2433,8 @@ def main(argv=None) -> int:
              "library_ms", "share_of_bound")},
          "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms",
-                                       "share_of_bound", "max_abs_err")}
+                                       "share_of_bound", "max_abs_err",
+                                       "host_us", "plan")}
                     for r in kern["paged_decode"]["shapes"]]},
     ]}
     print(json.dumps(record), flush=True)

@@ -5,8 +5,9 @@ sources, on one card, in turns (kernel, variant, variant, kernel).
 
 The variant rounds the softmax weights P to bf16 and multiplies them once
 (the lo products of both kernels removed: the flash kernel's ``al``
-wgmma, the decode kernel's two ``pl`` MMAs), where the kernels split P
-into bf16 hi + lo and multiply twice. For each side it prints the worst bf16
+wgmma; the decode kernel's store of P's lo rows, so that its lo columns
+of the one P V product stay zero), where the kernels split P into bf16
+hi + lo and multiply both. For each side it prints the worst bf16
 error of phase 3's check cases as a share of ``chip_smoke.TOL`` (a share
 above 1 fails the check) and the device ms at the serving shapes beside
 SDPA's, timed as phase 3 times them (inputs cold in L2, CUDA-graph
@@ -30,7 +31,7 @@ LO_MMA = {
     "flash_prefill": (re.compile(r".*wgmma::RS<HD>::mma\(acc, al, dv, 1\);\n"),
                       1),
     "paged_decode": (re.compile(
-        r".*mma_bf16\(acc\[2 \* np(?: \+ 1)?\], pl,.*\n"), 2),
+        r".*Ps \+ sw128_offset\(2 \* h \+ 1, .*= lo;\n"), 1),
 }
 
 

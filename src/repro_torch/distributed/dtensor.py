@@ -66,9 +66,18 @@ class _KeepLayout(torch.autograd.Function):
 
 
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
-    """(..., n, hd) -> (..., n * hd). On a DTensor the gradient comes back
-    in the merged value's own layout, so that the backward's split never
-    meets a fused dim sharded over more ranks than ``n`` divides."""
+    """(..., n, hd) -> (..., n * hd). A DTensor whose head dim (the last)
+    is sharded is first replicated along it, as ``split_heads`` does
+    before it unflattens (DTensor refuses to flatten a sharded inner dim;
+    GSPMD pads there). On a DTensor the gradient comes back in the merged
+    value's own layout, so that the backward's split never meets a fused
+    dim sharded over more ranks than ``n`` divides."""
+    if is_dtensor(t):
+        last = t.dim() - 1
+        if any(p.is_shard(last) for p in t.placements):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(last) else p
+                for p in t.placements])
     t = t.reshape(*t.shape[:-2], -1)
     return _KeepLayout.apply(t) if is_dtensor(t) else t
 

@@ -87,16 +87,17 @@
 // kv head and writes that row from it. The serving path never has such a
 // row (every chunk row sees its own key).
 
-#include <cuda.h>            // CUtensorMap and its enums (no libcuda link)
-#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <limits.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
+
+using namespace tma;
 
 constexpr int BQ = 64;                  // q rows a pre-pass tile (and f32 tile)
 constexpr int BK = 64;                  // keys a pre-pass tile (and f32 tile)
@@ -111,15 +112,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE_MASK = (1 << 29) - 1;
 constexpr int FULL = 1 << 30;
 __host__ __device__ constexpr int FULL_W(int w) { return FULL >> w; }
-// C interface errors of the tensor-map setup (CUDA's own codes are < 1000)
-constexpr int ERR_NO_ENCODE = 1001;     // no cuTensorMapEncodeTiled in the driver
-constexpr int ERR_ENCODE = 1002;        // the driver refused a tensor map
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ unsigned pack_bf16(float lo_elem, float hi_elem) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo_elem, hi_elem);
   return *reinterpret_cast<unsigned*>(&h);
@@ -272,71 +267,8 @@ __device__ int build_tile_list(const int4* __restrict__ qsum,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16: TMA + wgmma, warp-specialised
+// bfloat16: TMA + wgmma, warp-specialised (helpers in tma.cuh, wgmma.cuh)
 // --------------------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-        "r"(c2), "r"(c3) : "memory");
-}
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand (rows of
-// 64 bf16, 8-row atoms of 1024 bytes, 1024-aligned): start address, leading
-// byte offset (MN-major: the next 64-wide block; unused K-major), stride
-// byte offset 1024 (the next 8 rows), in 16-byte units; layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16)
-       | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from touching registers of an in-flight wgmma: each
-// use after the wait is ordered after it
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // NC consumer warpgroups of 64 q rows, BN keys a tile, hd HD (boxes of 64)
 template <int HD, int NC, int BN>
 struct WgCfg {
@@ -404,7 +336,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(k_empty + 8 * s, 4 * NC);
       mbar_init(v_empty + 8 * s, 4 * NC);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   if (tid < NC) flag_s[tid] = 0;
   __syncthreads();
@@ -493,15 +425,15 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // ---- S = Q K^T: both operands K-major in shared memory ----
       mbar_wait(k_full + 8 * s, parity);
-      wg_fence();
+      wgmma::fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         wgmma::SS<BN>::mma(sc, sw128_desc(q_base + (kk >> 2) * BM * 128 + (kk & 3) * 32, 0),
                            sw128_desc(k_base + (kk >> 2) * BN * 128 + (kk & 3) * 32, 0),
                            kk > 0);
-      wg_commit();
-      wg_wait_all();
-      hold(sc);
+      wgmma::commit();
+      wgmma::wait();
+      wgmma::hold(sc);
 
       // ---- scores in log2 units, masks (none on a FULL tile), online
       //      softmax on the fragments: sc[4j + e] is row r0 + 8 (e >> 1),
@@ -556,7 +488,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < BN / 4; ++i) split_pair(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
       mbar_wait(v_full + 8 * s, parity);
-      wg_fence();
+      wgmma::fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t dv = sw128_desc(v_base + kk * 16 * 128, BN * 128);
@@ -565,11 +497,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma::RS<HD>::mma(acc, ah, dv, 1);
         wgmma::RS<HD>::mma(acc, al, dv, 1);
       }
-      wg_commit();
-      wg_wait_all();
-      hold(acc);
-      hold(ph);
-      hold(pl);
+      wgmma::commit();
+      wgmma::wait();
+      wgmma::hold(acc);
+      wgmma::hold(ph);
+      wgmma::hold(pl);
       if (lane == 0) mbar_arrive(v_empty + 8 * s);   // this warp's V reads done
     }
 
@@ -805,44 +737,6 @@ int set_smem(Kern kern, size_t smem, size_t& smem_set) {
     smem_set = smem;
   }
   return 0;
-}
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so that
-// the library needs no link against libcuda
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A (B, S, heads, hd) bf16 tensor as a 4-d tensor map, boxes of 64 hd
-// columns (zero-filled past hd) by one head by `rows` positions (zero-filled
-// past S), 128-byte swizzle
-int tensor_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S, int B, int rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
-  if (enc == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
 struct Args {

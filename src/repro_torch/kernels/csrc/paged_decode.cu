@@ -7,63 +7,86 @@
 // query heads of one kv head share its pages (q head kh*G+g). Keys are read
 // only below context_lens[b] (and below MP*page); float32 online softmax,
 // optional softcap, NEG_INF = -1e30 with a 1e-30 denominator floor, and a
-// row with context 0 gives zeros. A null block table addresses row b's key t
-// at page b*MP + t/page: contiguous per-row caches need no table.
+// row with context 0 gives zeros. A null block table (MP = 1) reads row b's
+// keys from a contiguous (B, C = page, K, hd) cache: no table is built.
 //
 // What bounds it on the H100: every cached key and value of a row is read
 // once and used by only G query heads (G = 4 on qwen3-8b), about 2*G
 // multiply-adds per byte, far below the ~295 operations a byte at which
 // arithmetic would set the pace. So the bound is the bytes: 2 * ctx * K * hd
-// elements a row, over 3.35 TB/s. The design serves that bound:
+// elements a row, over 3.35 TB/s. What kept the previous (mma.sync,
+// cp.async) kernel at 50-72% of it: a split plan sized for 4 CTAs an SM
+// when 3 fit (1.3-1.5 waves, the last one streaming at a fraction of the
+// bandwidth), and one 32 KB tile in flight a CTA behind two block barriers
+// per tile. The design:
 //   * split-KV (flash-decoding): the grid is (n_split, K, B); each CTA owns
-//     one key range of `split` keys of one (row, kv head). The split length
-//     comes from shapes only (capacity MP*page, B*K and the SM count; the
-//     wrapper's `plan_splits`), never from context_lens, so no host sync is
-//     needed and the launch can be captured in a CUDA graph. At B*K = 64 and
-//     capacity 2048 it is 256 keys, 8 splits, 512 CTAs for 132 SMs, so a
-//     long row no longer runs on one SM while the others idle. A CTA whose
-//     range starts at or past its row's context writes a neutral partial
-//     (m = NEG_INF, l = 0) and exits.
-//   * each CTA streams its range in 64-key tiles (32 for float32), K and V
-//     staged in shared memory by 16-byte cp.async copies, double-buffered:
-//     tile i+1 is in flight while tile i is scored and multiplied.
-//   * bfloat16 runs on the tensor cores (mma.sync.m16n8k16, bf16 in,
-//     float32 accumulate): the G query heads are rows of the 16-row A
-//     operand, each warp takes 16 keys of a tile, and S = q K^T and
-//     O += P V are 24 MMAs a warp a tile. The first version of this split
-//     kernel did the same work as float32 FMAs on the CUDA cores, one
-//     (key, head) dot product a thread, and read 0.0735 ms at the serving
-//     shape, 14% of the bound: with G = 4 the FMAs and shared loads, not
-//     the bytes, set its pace. On the tensor cores the pair of kernels
-//     takes 0.0246 ms (PERF.md). P enters P V as bf16 hi + lo, which keeps
-//     the float32 weights' precision (bf16 P alone missed the bf16
-//     tolerance, scripts/kernel_variants.py); each warp keeps its own
-//     online softmax (exp2, the scale folded in) and the 4 warps merge by
-//     log-sum-exp at the end.
+//     one key range of `split` keys of one (row, kv head). The split comes
+//     from shapes only (`paged_attention.plan`: capacity, B*K, the CTAs
+//     that really fit on an SM, the SM count), never from context_lens, so
+//     no host sync is needed and the launch can be captured in a CUDA
+//     graph; the grid fills whole waves of resident CTAs (256 CTAs at the
+//     serving shapes, two an SM). A CTA whose range starts at or past its
+//     row's context writes a neutral partial (m = NEG_INF, l = 0), or zeros
+//     when it is the row's only split.
+//   * bfloat16, warp-specialised on TMA + wgmma. One producer warp walks
+//     the range in 64-key tiles and copies each tile's K and V by TMA
+//     (cp.async.bulk.tensor over 4-d tensor maps of (rows or pages, slots,
+//     kv heads, hd), boxes of 64 hd columns zero-filled past hd, 128-byte
+//     swizzle) into a ring of 2-4 stages with a full and an empty mbarrier
+//     each; under a block table a box never crosses a page (box rows =
+//     gcd(page, 64); a tile over small pages is one box a page, all
+//     completing on the tile's full barrier). Only the producer computes
+//     K/V addresses. It needs few registers, so there is no setmaxnreg:
+//     the CTA is 160 threads, two or three CTAs an SM, 6-12 tiles (192 KB)
+//     in flight on each SM. One consumer warpgroup takes
+//     the 64-key tile as the 64-row operand of two products: S^T = K Q^T
+//     (SS, N = G padded to 8, Q^T swizzled into shared memory once), and
+//     O^T += V^T [P_hi | P_lo]^T (SS, A = the V tile read MN-major, B = P
+//     written to shared memory, hi and lo of each head as two of N = 2G
+//     columns: one product where the previous kernel issued two). The
+//     per-head max of a tile over its 64 keys is one exchange through
+//     shared memory across the 4 warps (a named barrier, no block-wide
+//     one); P's stores are fenced to the async proxy before a second named
+//     barrier. P keeps float32 precision as hi + lo (bf16 P alone missed
+//     the bf16 tolerance, scripts/kernel_variants.py).
 //   * float32 stays on the CUDA cores, exact (no TF32): scores are one
 //     (key, head group) a thread, the softmax one warp a head, P V one column
 //     pair a thread over a slice of the tile's keys. K rows are padded by
 //     16 bytes, so the thread-per-key 16-byte reads hit no bank twice.
-//   * a second kernel merges the float32 partials (m, l, acc) of the splits
-//     by log-sum-exp in a fixed order, on the same stream, and writes the
-//     output in q's dtype. No atomics: results are the same run to run.
+//   * the splits' float32 partials (m, l, acc) are merged by log-sum-exp in
+//     split order. bf16: by the last CTA of each (row, kv head) to finish,
+//     elected by an atomic ticket on a counter that it puts back to zero
+//     (one kernel a call: the second kernel it replaced cost 5-7 us a call
+//     at the serving shapes, PERF.md); a call of one split writes its
+//     output directly. float32: a second kernel on the same stream. The
+//     ticket only elects the merger; the merge order is fixed, so results
+//     are the same run to run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace tma;
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXG = 16;              // query heads per kv head
 constexpr int SPLIT_ALIGN = 64;       // split lengths are multiples of this
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_SMEM = 232448;
+
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -79,37 +102,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// c += a * b, 16x8x16, bf16 inputs, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// a pair of float32 weights as bf16 hi + lo pairs (hi + lo carries ~16 bits)
-__device__ __forceinline__ void split_pair(float x, float y, unsigned& hi, unsigned& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<unsigned*>(&h);
-  lo = *reinterpret_cast<unsigned*>(&r);
 }
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -356,234 +348,362 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16: the same split on the tensor cores. The G query heads are rows
-// 0..G-1 of the 16-row A operand (the rest zero); each warp owns 16 keys of
-// every tile and keeps its own online softmax; the 4 warps' states are
-// merged by log-sum-exp in shared memory at the end.
+// bfloat16: TMA producer warp + one wgmma consumer warpgroup (see the top).
+// HD in NB boxes of 64 columns; GB (4, 8 or 16) query heads a kv head at
+// most, so S^T is N = NS wide (G padded to 8) and O^T N = NO = 2 GB wide.
 // --------------------------------------------------------------------------
-template <int HD>
-struct Bf16Cfg {
-  static constexpr int TK = 64;                    // keys a tile, 16 a warp
-  static constexpr int ROW = HD + 8;               // padded smem row (bf16)
-  static constexpr int CPR = HD / 8;               // 16-byte chunks a row
-  static constexpr size_t KV_BYTES = sizeof(__nv_bfloat16) * 4 * TK * ROW;
-  static constexpr size_t MERGE_BYTES = sizeof(float) * NWARPS * MAXG * (HD + 2);
-  static_assert(MERGE_BYTES <= KV_BYTES, "the merge aliases the K/V tiles");
+template <int HD, int GB>
+struct DecCfg {
+  static constexpr int TK = 64;                     // keys a tile
+  static constexpr int NB = (HD + 63) / 64;         // 64-column boxes (and M blocks of O^T)
+  static constexpr int NS = GB < 8 ? 8 : GB;        // N of S^T
+  static constexpr int NO = 2 * GB;                 // N of O^T: hi, lo of each head
+  static constexpr int NT = NTHREADS + 32;          // consumers + the producer warp
+  static constexpr int BOX = TK * 128;              // one 64-column box of a tile
+  static constexpr int KV_BYTES = NB * BOX;         // K or V of a stage
+  static constexpr int Q_BYTES = NB * NS * 128;
+  static constexpr int P_BYTES = NO * 128;
+  static constexpr int RED_BYTES = 2 * NWARPS * MAXG * 4;   // tile max, sums
+  // dynamic shared memory: alignment slack, the ring (K and V a stage), Q^T,
+  // P, the exchange, two barriers a stage (`paged_attention.plan` repeats it)
+  static size_t bytes(int stages) {
+    return 1024 + (size_t)stages * 2 * KV_BYTES + Q_BYTES + P_BYTES + RED_BYTES + 16 * stages;
+  }
 };
 
+// The last CTA of a (row, kv head) to finish merges its splits' float32
+// partials by log-sum-exp, in split order, with the combine kernel's
+// arithmetic. `cnt` counts the (row, kv head)'s finished splits: each CTA
+// fences its partial and takes a ticket; the one that takes the last merges
+// and puts the count back to 0 for the next call on the stream. As in the
+// combine kernel, every split's (m, l) is first staged in shared memory
+// (`ws`: 2 n_split G floats, the K/V ring, free by then) by loads that do
+// not wait on one another, so the merge costs a few L2 round trips, not
+// one a split. The 128 consumer threads, named barrier 1.
 template <int HD>
-size_t bf16_smem_bytes(int npg) {
-  using C = Bf16Cfg<HD>;
-  return C::KV_BYTES + sizeof(__nv_bfloat16) * 16 * C::ROW + sizeof(int) * npg;
+__device__ void merge_if_last(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                              const float* __restrict__ part_acc, bf16* __restrict__ out,
+                              int* __restrict__ cnt, int* flag_s, float* ws, size_t base,
+                              int G, int n_split) {
+  const int tid = threadIdx.x;
+  __threadfence();                      // this CTA's partial, before its ticket
+  named_sync(1, NTHREADS);
+  if (tid == 0) *flag_s = atomicAdd(cnt, 1) == n_split - 1;
+  named_sync(1, NTHREADS);
+  if (!*flag_s) return;
+  __threadfence();                      // the other CTAs' partials, after the tickets
+  const int n = n_split * G;
+  float* w_s = ws;                      // [n_split][G]: m, then the weight
+  float* l_s = ws + n;                  // [n_split][G]
+  float* inv_s = ws + 2 * n;            // [G]
+  for (int i = tid; i < n; i += NTHREADS) {
+    const float l = __ldcg(part_l + base + i);
+    l_s[i] = l;
+    w_s[i] = l > 0.f ? __ldcg(part_m + base + i) : NEG_INF;
+  }
+  named_sync(1, NTHREADS);
+  if (tid < G) {
+    float M = NEG_INF;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, w_s[s * G + tid]);
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float l = l_s[s * G + tid];
+      const float w = l > 0.f ? expf(w_s[s * G + tid] - M) : 0.f;
+      w_s[s * G + tid] = w;
+      L += l * w;
+    }
+    inv_s[tid] = 1.f / fmaxf(L, 1e-30f);
+  }
+  named_sync(1, NTHREADS);
+  for (int idx = tid; idx < G * HD; idx += NTHREADS) {
+    const int g = idx / HD;
+    float a = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      const float w = w_s[s * G + g];
+      if (w > 0.f) a += w * __ldcg(part_acc + (base + s * G) * HD + idx);
+    }
+    out[idx] = __float2bfloat16(a * inv_s[g]);
+  }
+  if (tid == 0) *cnt = 0;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ kp,
-                         const __nv_bfloat16* __restrict__ vp,
-                         const int* __restrict__ bt, const int* __restrict__ cl,
+template <int HD, int GB>
+__global__ void __launch_bounds__(DecCfg<HD, GB>::NT, 2)
+paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const bf16* __restrict__ q, const int* __restrict__ bt,
+                         const int* __restrict__ cl, bf16* __restrict__ o,
                          float* __restrict__ part_m, float* __restrict__ part_l,
-                         float* __restrict__ part_acc, int H, int K, int page,
-                         int MP, int split, float scale, float softcap) {
-  using C = Bf16Cfg<HD>;
-  constexpr int TK = C::TK, ROW = C::ROW, CPR = C::CPR;
-  constexpr int ND = HD / 8;                       // n tiles of the output
-  constexpr float LOG2E = 1.4426950408889634f;
-  typedef __nv_bfloat16 bf16;
+                         float* __restrict__ part_acc, int* __restrict__ cnt, int H, int K,
+                         int page, int MP, int split, int box, int stages, float scale,
+                         float softcap) {
+  using C = DecCfg<HD, GB>;
+  constexpr int TK = C::TK, NB = C::NB, NS = C::NS, NO = C::NO;
+  constexpr int SJ = NS / 8, OJ = NO / 8;           // 8-column blocks of S^T, O^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);    // [2][TK][ROW]
-  bf16* Vs = Ks + 2 * TK * ROW;                    // [2][TK][ROW]
-  bf16* Qs = Vs + 2 * TK * ROW;                    // [16][ROW]
-  int* pages_s = reinterpret_cast<int*>(Qs + 16 * ROW);
+  unsigned char* KVs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = KVs + (size_t)stages * 2 * C::KV_BYTES;   // [NB][NS][64]
+  unsigned char* Ps = Qs + C::Q_BYTES;                          // [NO][TK]
+  float* red_m = reinterpret_cast<float*>(Ps + C::P_BYTES);     // [NWARPS][MAXG]
+  float* red_l = red_m + NWARPS * MAXG;                         // [NWARPS][MAXG]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red_l + NWARPS * MAXG);
 
   const int sp = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int G = H / K;
-  const size_t pbase = (((size_t)b * K + kh) * n_split + sp) * G;
+  const size_t base = ((size_t)b * K + kh) * n_split * G;   // split 0's partial
+  const size_t pbase = base + (size_t)sp * G;
+  bf16* out = o + ((size_t)b * H + kh * G) * HD;
+  cnt += (size_t)b * K + kh;
+  int* flag_s = reinterpret_cast<int*>(red_m);                  // after the loop
 
   const int ctx = max(0, min(cl[b], MP * page));
   const int t0 = sp * split;
-  if (t0 >= ctx) {                      // neutral partial
+  if (t0 >= ctx) {                      // zeros (ctx 0), or a neutral partial
+    if (n_split == 1) {
+      for (int i = tid; i < G * HD; i += C::NT) out[i] = __float2bfloat16(0.f);
+      return;
+    }
+    if (tid >= NTHREADS) return;        // the producer warp
     if (tid < G) {
       part_m[pbase + tid] = NEG_INF;
       part_l[pbase + tid] = 0.f;
     }
+    merge_if_last<HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+                      reinterpret_cast<float*>(KVs), base, G, n_split);
     return;
   }
   const int t1 = min(t0 + split, ctx);
-  const int pg0 = t0 / page;
-  if (bt != nullptr) {
-    const int npg = (t1 - 1) / page - pg0 + 1;
-    for (int i = tid; i < npg; i += NTHREADS)
-      pages_s[i] = bt[(size_t)b * MP + pg0 + i];
-  }
-  // q rows 0..G-1 of the A operand, the rest zero
-  for (int c = tid; c < 16 * CPR; c += NTHREADS) {
-    const int r = c / CPR, cc = c % CPR;
-    const bool ok = r < G;
-    cp_async16(Qs + r * ROW + cc * 8,
-               ok ? q + ((size_t)b * H + kh * G + r) * HD + cc * 8 : q, ok);
-  }
-  __syncthreads();                      // pages_s ready for the copies
-
-  const size_t row_stride = (size_t)K * HD;
-  auto load_tile = [&](int base, int buf) {
-    for (int c = tid; c < TK * CPR; c += NTHREADS) {
-      const int r = c / CPR, cc = c % CPR, t = base + r;
-      const bool ok = t < t1;
-      size_t off = 0;
-      if (ok) {
-        const int pid = bt != nullptr ? pages_s[t / page - pg0] : b * MP + t / page;
-        off = ((size_t)pid * page + t % page) * row_stride + (size_t)kh * HD + cc * 8;
-      }
-      cp_async16(Ks + (buf * TK + r) * ROW + cc * 8, kp + off, ok);
-      cp_async16(Vs + (buf * TK + r) * ROW + cc * 8, vp + off, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int mi = lane >> 3, mr = lane & 7;         // ldmatrix: matrix, row
-  const float sl = scale * LOG2E;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  unsigned qf[HD / 16][4];
-
   const int ntiles = (t1 - t0 + TK - 1) / TK;
-  load_tile(t0, 0);                     // (the q copies join this group)
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1;
-    const int base = t0 + it * TK;
-    if (it + 1 < ntiles) {
-      load_tile(base + TK, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // + 8 * stage: the stage's K and V arrived; read by every consumer warp
+  const uint32_t full = smem_u32(bars), empty = full + 8 * stages;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NWARPS);
     }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + ((mi & 1) * 8 + mr) * ROW + kk * 16 + (mi >> 1) * 8);
-    }
-    const bf16* Kb = Ks + (buf * TK + warp * 16) * ROW;
-    const bf16* Vb = Vs + (buf * TK + warp * 16) * ROW;
-
-    // ---- scores of this warp's 16 keys: two 8-key n tiles ----
-    float s[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      unsigned bb[4];
-      ldmatrix_x4(bb, Kb + ((mi >> 1) * 8 + mr) * ROW + kk * 16 + (mi & 1) * 8);
-      mma_bf16(s[0], qf[kk], bb[0], bb[1]);
-      mma_bf16(s[1], qf[kk], bb[2], bb[3]);
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = base + warp * 16 + n * 8 + 2 * (lane & 3) + (e & 1);
-        float x = s[n][e];
-        if (softcap > 0.f) x = softcap * tanhf(x * scale / softcap) * LOG2E;
-        else x *= sl;
-        x = t < t1 ? x : -INFINITY;               // log2 units
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);     // finite: m >= NEG_INF
-      alpha[i] = fast_exp2(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-    unsigned ph[4], pl[4];
-    split_pair(s[0][0], s[0][1], ph[0], pl[0]);
-    split_pair(s[0][2], s[0][3], ph[1], pl[1]);
-    split_pair(s[1][0], s[1][1], ph[2], pl[2]);
-    split_pair(s[1][2], s[1][3], ph[3], pl[3]);
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int np = 0; np < ND / 2; ++np) {
-      unsigned bb[4];
-      ldmatrix_x4_trans(bb, Vb + ((mi & 1) * 8 + mr) * ROW + np * 16 + (mi >> 1) * 8);
-      mma_bf16(acc[2 * np], ph, bb[0], bb[1]);
-      mma_bf16(acc[2 * np], pl, bb[0], bb[1]);
-      mma_bf16(acc[2 * np + 1], ph, bb[2], bb[3]);
-      mma_bf16(acc[2 * np + 1], pl, bb[2], bb[3]);
-    }
-    __syncthreads();                    // buffer `buf` free for tile it + 2
-  }
-
-  // ---- merge the 4 warps by log-sum-exp; write the float32 partial ----
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  float* mw = reinterpret_cast<float*>(smem_raw);  // [NWARPS][MAXG]
-  float* lw = mw + NWARPS * MAXG;                  // [NWARPS][MAXG]
-  float* aw = lw + NWARPS * MAXG;                  // [NWARPS][MAXG][HD]
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int g = (lane >> 2) + 8 * i;
-    if (g < G) {
-      if ((lane & 3) == 0) {
-        mw[warp * MAXG + g] = m[i];
-        lw[warp * MAXG + g] = l[i];
-      }
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        const int c = d * 8 + 2 * (lane & 3);
-        aw[(warp * MAXG + g) * HD + c] = acc[d][2 * i];
-        aw[(warp * MAXG + g) * HD + c + 1] = acc[d][2 * i + 1];
-      }
-    }
+    mbar_init_fence();
   }
   __syncthreads();
-  for (int idx = tid; idx < G * HD; idx += NTHREADS) {
-    const int g = idx / HD, d = idx % HD;
-    float M = NEG_INF;
+
+  // the warp, uniform to the compiler (lane 0's, by a shuffle): no warp
+  // diverges across the role branch, so the consumers' wgmma is never in
+  // divergent code
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  if (warp == NWARPS) {
+    // ---- producer: one warp, a lane a box of the tile ----
+    const int nbox = TK / box;
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % stages;
+      mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(full + 8 * s, 2 * C::KV_BYTES);
+      __syncwarp();
+      if (lane < nbox) {
+        int t = t0 + it * TK + lane * box;
+        // a box wholly past the context loads the last box that holds a
+        // key again (its keys are masked), so every box reads a mapped page
+        if (t >= t1) t = (t1 - 1) / box * box;
+        const int pid = bt != nullptr ? bt[(size_t)b * MP + t / page] : b;
+        const int row = bt != nullptr ? t % page : t;
+        const uint32_t kb = smem_u32(KVs) + (uint32_t)s * 2 * C::KV_BYTES + lane * box * 128;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, mw[w * MAXG + g]);
-    float a = 0.f, L = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float f = fast_exp2(mw[w * MAXG + g] - M);
-      a += aw[(w * MAXG + g) * HD + d] * f;
-      L += lw[w * MAXG + g] * f;
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load(kb + bx * C::BOX, &tm_k, full + 8 * s, bx * 64, kh, row, pid);
+          tma_load(kb + C::KV_BYTES + bx * C::BOX, &tm_v, full + 8 * s, bx * 64, kh, row, pid);
+        }
+      }
+      __syncwarp();
     }
-    part_acc[(pbase + g) * HD + d] = a;
-    if (d == 0) {
-      part_m[pbase + g] = M * 0.6931471805599453f;   // natural-log units
+    return;
+  }
+
+  // ---- consumer warpgroup: accumulator rows 16 warp + r0 (+ 8), columns
+  //      8 j + c2 (+ 1); S^T's rows are keys and columns query heads, O^T's
+  //      rows hd and columns (head, hi | lo) ----
+  const int r0 = lane >> 2, c2 = 2 * (lane & 3);
+  // Q^T, the B operand of S^T: NS rows (query heads, zero past G) of hd in
+  // 64-column boxes, swizzled as TMA would write them; P zeroed once
+  for (int c = tid; c < NB * NS * 8; c += NTHREADS) {
+    const int bx = c / (NS * 8), n = (c / 8) % NS, ch = c % 8;
+    const int d = bx * 64 + ch * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n < G && d < HD)
+      v = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + kh * G + n) * HD + d);
+    *reinterpret_cast<uint4*>(Qs + bx * NS * 128 + sw128_offset(n, ch)) = v;
+  }
+  for (int i = tid; i < C::P_BYTES / 16; i += NTHREADS)
+    reinterpret_cast<uint4*>(Ps)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
+  named_sync(1, NTHREADS);
+
+  const float sl = scale * LOG2E;
+  // running max and sum of this thread's heads of S^T (2 a column block),
+  // running max of its heads of O^T (4 j + lane % 4)
+  float mS[2 * SJ], lS[2 * SJ], mO[OJ];
+#pragma unroll
+  for (int i = 0; i < 2 * SJ; ++i) {
+    mS[i] = NEG_INF;
+    lS[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < OJ; ++j) mO[j] = NEG_INF;
+  float sc[NS / 2], oacc[NB][NO / 2];
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) oacc[mb][i] = 0.f;
+  const uint32_t q_base = smem_u32(Qs), p_base = smem_u32(Ps);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % stages;
+    const int base = t0 + it * TK;
+    const uint32_t k_base = smem_u32(KVs) + (uint32_t)s * 2 * C::KV_BYTES;
+    const uint32_t v_base = k_base + C::KV_BYTES;
+
+    // ---- S^T = K Q^T: A the K tile, B Q^T, both K-major ----
+    mbar_wait(full + 8 * s, (it / stages) & 1);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma::SS<NS>::template mma<0>(
+          sc, sw128_desc(k_base + (kk >> 2) * C::BOX + (kk & 3) * 32, 0),
+          sw128_desc(q_base + (kk >> 2) * NS * 128 + (kk & 3) * 32, 0), kk > 0);
+    wgmma::commit();
+    wgmma::wait();
+    wgmma::hold(sc);
+
+    // ---- scores in log2 units, keys past the range masked; the tile's
+    //      max of each head: this thread's two keys, its warp's 16, then
+    //      the 4 warps' through shared memory ----
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int key = base + 16 * warp + r0 + 8 * ((i >> 1) & 1);
+      const float x = softcap > 0.f ? softcap * tanhf(sc[i] * scale / softcap) * LOG2E
+                                    : sc[i] * sl;
+      sc[i] = key < t1 ? x : -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = fmaxf(sc[4 * j + e], sc[4 * j + 2 + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        if (r0 == 0) red_m[warp * MAXG + 8 * j + c2 + e] = mx;
+      }
+    }
+    named_sync(1, NTHREADS);
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = 8 * j + c2 + e;
+        float mx = red_m[h];
+#pragma unroll
+        for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, red_m[w * MAXG + h]);
+        const float m_new = fmaxf(mS[2 * j + e], mx);   // finite: m >= NEG_INF
+        lS[2 * j + e] *= fast_exp2(mS[2 * j + e] - m_new);
+        mS[2 * j + e] = m_new;
+      }
+    }
+    float alpha[OJ];
+#pragma unroll
+    for (int j = 0; j < OJ; ++j) {
+      const int h = 4 * j + (lane & 3);
+      float mx = red_m[h];
+#pragma unroll
+      for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, red_m[w * MAXG + h]);
+      const float m_new = fmaxf(mO[j], mx);
+      alpha[j] = fast_exp2(mO[j] - m_new);
+      mO[j] = m_new;
+    }
+
+    // ---- P = exp2(s - m) into shared memory, K-major rows of the tile's
+    //      64 keys: row 2h holds head h's bf16 hi, row 2h + 1 its lo ----
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int j = i >> 2, e = i & 1, h = 8 * j + c2 + e;
+      const float p = fast_exp2(sc[i] - mS[2 * j + e]);
+      lS[2 * j + e] += p;
+      const int key = 16 * warp + r0 + 8 * ((i >> 1) & 1);
+      if (2 * h < NO) {
+        const bf16 hi = __float2bfloat16(p);
+        const bf16 lo = __float2bfloat16(p - __bfloat162float(hi));
+        *reinterpret_cast<bf16*>(Ps + sw128_offset(2 * h, key >> 3) + 2 * (key & 7)) = hi;
+        *reinterpret_cast<bf16*>(Ps + sw128_offset(2 * h + 1, key >> 3) + 2 * (key & 7)) = lo;
+      }
+    }
+    fence_proxy_async();
+    named_sync(1, NTHREADS);
+
+    // ---- O^T += V^T P^T: A the V tile MN-major, one 64-row block of hd
+    //      at a time; B P, K-major ----
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+      for (int i = 0; i < NO / 2; ++i) oacc[mb][i] *= alpha[i >> 2];
+    wgmma::fence();
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma::SS<NO>::template mma<1>(oacc[mb],
+                                       sw128_desc(v_base + mb * C::BOX + kk * 16 * 128, C::BOX),
+                                       sw128_desc(p_base + kk * 32, 0), 1);
+    wgmma::commit();
+    wgmma::wait();
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb) wgmma::hold(oacc[mb]);
+    if (lane == 0) mbar_arrive(empty + 8 * s);   // this warp's reads of the stage done
+  }
+
+  // ---- the sums: this thread's keys, its warp's, then the 4 warps' in a
+  //      fixed order; write the output (one split) or the float32 partial
+  //      (m in natural-log units) ----
+#pragma unroll
+  for (int j = 0; j < SJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float l = lS[2 * j + e];
+      l += __shfl_xor_sync(0xffffffffu, l, 4);
+      l += __shfl_xor_sync(0xffffffffu, l, 8);
+      l += __shfl_xor_sync(0xffffffffu, l, 16);
+      if (r0 == 0) red_l[warp * MAXG + 8 * j + c2 + e] = l;
+    }
+  }
+  named_sync(1, NTHREADS);
+#pragma unroll
+  for (int j = 0; j < OJ; ++j) {
+    const int g = 4 * j + (lane & 3);
+    if (g >= G) continue;
+    float L = red_l[g];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) L += red_l[w * MAXG + g];
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int d = mb * 64 + 16 * warp + r0 + 8 * r;
+        if (d >= HD) continue;
+        const float a = oacc[mb][4 * j + 2 * r] + oacc[mb][4 * j + 2 * r + 1];
+        if (n_split == 1) out[g * HD + d] = __float2bfloat16(a * inv);
+        else part_acc[(pbase + g) * HD + d] = a;
+      }
+    }
+    if (n_split > 1 && warp == 0 && r0 == 0) {
+      part_m[pbase + g] = mO[j] * 0.6931471805599453f;
       part_l[pbase + g] = L;
     }
   }
+  if (n_split > 1)
+    merge_if_last<HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+                      reinterpret_cast<float*>(KVs), base, G, n_split);
 }
 
 // Merge the splits of one (row, kv head) by log-sum-exp; a split with l = 0
@@ -632,97 +752,154 @@ paged_decode_combine_kernel(const float* __restrict__ part_m,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* cl, void* o, void* part, int B, int H, int K, int page,
-           int MP, int split, int n_split, float softcap, cudaStream_t stream) {
-  const int G = H / K;
-  const int npg = split / page + 2;
-  const size_t n = (size_t)B * K * n_split * G;
-  float* pm = static_cast<float*>(part);
+template <typename Kern>
+int set_smem(Kern kern, size_t smem, size_t& smem_set) {
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  return 0;
+}
+
+// The tensor map of a cache, from a per-thread cache keyed by everything
+// the map encodes (base, shape, box rows): the engine calls each layer's
+// cache every decode step, and the host is what bounds serving.
+int cached_map(CUtensorMap* out, const void* ptr, int hd, int heads, int S, int B, int rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    int hd, heads, S, B, rows;
+  };
+  static thread_local Entry cache[64];
+  const size_t h = ((reinterpret_cast<uintptr_t>(ptr) >> 8) ^ (size_t)S * 31 ^ (size_t)rows) & 63;
+  Entry& e = cache[h];
+  if (e.ptr != ptr || e.hd != hd || e.heads != heads || e.S != S || e.B != B
+      || e.rows != rows) {
+    e.ptr = nullptr;
+    if (int err = tensor_map(&e.map, ptr, hd, heads, S, B, rows)) return err;
+    e.ptr = ptr;
+    e.hd = hd; e.heads = heads; e.S = S; e.B = B; e.rows = rows;
+  }
+  *out = e.map;
+  return 0;
+}
+
+struct Args {
+  const void *q, *kp, *vp, *bt, *cl;
+  void *o, *part;
+  int* cnt;
+  int B, H, K, page, MP, P, split, n_split, stages, box;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <int HD>
+int launch_f32(const Args& a) {
+  const int G = a.H / a.K;
+  const int npg = a.split / a.page + 2;
+  const size_t n = (size_t)a.B * a.K * a.n_split * G;
+  float* pm = static_cast<float*>(a.part);
   float* pl = pm + n;
   float* pa = pl + n;
-  const dim3 grid(n_split, K, B);
-  const float scale = 1.f / sqrtf((float)HD);
-  static size_t smem_set = 0;           // per instantiation
-  if constexpr (sizeof(T) == 2) {
-    auto kern = paged_decode_bf16_kernel<HD>;
-    const size_t smem = bf16_smem_bytes<HD>(npg);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    if (smem > smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      smem_set = smem;
-    }
-    kern<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-        static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
-        static_cast<const int*>(cl), pm, pl, pa, H, K, page, MP, split, scale,
-        softcap);
-  } else {
-    auto kern = paged_decode_split_kernel<T, HD>;
-    const size_t smem = smem_bytes<T, HD>(G, npg);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    if (smem > smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      smem_set = smem;
-    }
-    kern<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), static_cast<const int*>(bt),
-        static_cast<const int*>(cl), pm, pl, pa, H, K, page, MP, split, scale,
-        softcap);
-  }
+  auto kern = paged_decode_split_kernel<float, HD>;
+  static size_t smem_set = 0;
+  if (int e = set_smem(kern, smem_bytes<float, HD>(G, npg), smem_set)) return e;
+  kern<<<dim3(a.n_split, a.K, a.B), NTHREADS, smem_bytes<float, HD>(G, npg), a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.kp),
+      static_cast<const float*>(a.vp), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.cl), pm, pl, pa, a.H, a.K, a.page, a.MP, a.split,
+      1.f / sqrtf((float)HD), a.softcap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_combine_kernel<T, HD>
-      <<<B * K, NTHREADS, sizeof(float) * (n_split + 1) * G, stream>>>(
-          pm, pl, pa, static_cast<T*>(o), H, K, n_split);
+  paged_decode_combine_kernel<float, HD>
+      <<<a.B * a.K, NTHREADS, sizeof(float) * (a.n_split + 1) * G, a.stream>>>(
+          pm, pl, pa, static_cast<float*>(a.o), a.H, a.K, a.n_split);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
-                const void* bt, const void* cl, void* o, void* part, int B,
-                int H, int K, int page, int MP, int split, int n_split,
-                float softcap, cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    case 64: return launch<T, 64>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    case 96: return launch<T, 96>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    case 112: return launch<T, 112>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    case 128: return launch<T, 128>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    case 160: return launch<T, 160>(q, kp, vp, bt, cl, o, part, B, H, K, page, MP, split, n_split, softcap, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int HD, int GB>
+int launch_bf16(const Args& a) {
+  using C = DecCfg<HD, GB>;
+  // a tile is whole boxes; under a block table a box stays inside a page
+  if (a.stages < 2 || a.stages > 8 || a.box < 8 || C::TK % a.box
+      || (a.bt != nullptr && a.MP > 1 && a.page % a.box)
+      || (a.n_split > 1 && (a.part == nullptr || a.cnt == nullptr))
+      // the merge stages (m, l) of every split in the K/V ring
+      || (size_t)(2 * a.n_split + 1) * (a.H / a.K) * 4 > (size_t)a.stages * 2 * C::KV_BYTES)
+    return (int)cudaErrorInvalidValue;
+  auto kern = paged_decode_bf16_kernel<HD, GB>;
+  static size_t smem_set = 0;
+  const size_t smem = C::bytes(a.stages);
+  if (int e = set_smem(kern, smem, smem_set)) return e;
+  CUtensorMap tk, tv;
+  // pages (P, page, K, hd) under a table, else rows (B, C = page, K, hd)
+  const int S = a.page, N = a.bt != nullptr ? a.P : a.B;
+  if (int e = cached_map(&tk, a.kp, HD, a.K, S, N, a.box)) return e;
+  if (int e = cached_map(&tv, a.vp, HD, a.K, S, N, a.box)) return e;
+  const size_t n = (size_t)a.B * a.K * a.n_split * (a.H / a.K);
+  float* pm = static_cast<float*>(a.part);
+  float* pl = pm + n;
+  float* pa = pl + n;
+  kern<<<dim3(a.n_split, a.K, a.B), C::NT, smem, a.stream>>>(
+      tk, tv, static_cast<const bf16*>(a.q), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.cl), static_cast<bf16*>(a.o), pm, pl, pa, a.cnt, a.H, a.K,
+      a.page, a.MP, a.split, a.box, a.stages, 1.f / sqrtf((float)HD), a.softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const Args& a, int dtype) {
+  if (dtype == 0) return launch_f32<HD>(a);
+  const int G = a.H / a.K;
+  if (G <= 4) return launch_bf16<HD, 4>(a);
+  if (G <= 8) return launch_bf16<HD, 8>(a);
+  return launch_bf16<HD, 16>(a);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. bt may be null (row b's key t at page
-// b*MP + t/page). part: float32 scratch of B*K*n_split*G*(hd + 2) values.
-// split: keys a CTA, a multiple of 64 with split * n_split >= MP * page.
-// softcap <= 0 means "none". Launches the split kernel and the combine
-// kernel on `stream`; returns the CUDA error code (0 on success).
+// dtype: 0 float32, 1 bfloat16. bt null: contiguous rows (B, page, K, hd),
+// MP = 1; else pages (P, page, K, hd) under bt (B, MP). part: float32
+// scratch of B*K*n_split*G*(hd + 2) values (unused by a bf16 call of one
+// split). cnt: B*K int32 split counters of the bf16 kernel, zero before the
+// call and left zero after it (unused by float32 and by one split); calls
+// that share it must be ordered (one stream). split: keys a CTA, a multiple
+// of 64 with split * n_split >= MP * page > split * (n_split - 1). stages
+// (2-8) and box (the TMA box's rows: 8-64, dividing 64, and the page when
+// MP > 1) are the bf16 kernel's (`paged_attention.plan`); float32 ignores
+// them. softcap <= 0 means "none". Launches the split kernel on `stream`,
+// and for float32 the combine kernel after it; returns the CUDA error code
+// (0 on success), or 1001 when the driver has no cuTensorMapEncodeTiled,
+// 1002 when it refuses a tensor map.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* bt, const void* cl, void* o, void* part,
-                            int B, int H, int K, int hd, int page, int MP,
-                            int split, int n_split, int dtype, float softcap,
-                            void* stream) {
+                            void* cnt, int B, int H, int K, int hd, int page, int MP, int P,
+                            int split, int n_split, int stages, int box, int dtype,
+                            float softcap, void* stream) {
   if (K <= 0 || H % K != 0 || H / K > MAXG || B <= 0 || page <= 0 || MP <= 0
+      || (bt == nullptr && MP != 1) || B > 65535 || K > 65535
       || split <= 0 || split % SPLIT_ALIGN != 0 || n_split <= 0
       || (long long)split * n_split < (long long)MP * page
       || (long long)split * (n_split - 1) >= (long long)MP * page)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, kp, vp, bt, cl, o, part, B, H, K, page,
-                              MP, split, n_split, softcap, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, kp, vp, bt, cl, o, part, B, H, K,
-                                      page, MP, split, n_split, softcap, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q; a.kp = kp; a.vp = vp; a.bt = bt; a.cl = cl; a.o = o; a.part = part;
+  a.cnt = static_cast<int*>(cnt);
+  a.B = B; a.H = H; a.K = K; a.page = page; a.MP = MP; a.P = P;
+  a.split = split; a.n_split = n_split; a.stages = stages; a.box = box;
+  a.softcap = softcap;
+  a.stream = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch<32>(a, dtype);
+    case 64: return launch<64>(a, dtype);
+    case 96: return launch<96>(a, dtype);
+    case 112: return launch<112>(a, dtype);
+    case 128: return launch<128>(a, dtype);
+    case 160: return launch<160>(a, dtype);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

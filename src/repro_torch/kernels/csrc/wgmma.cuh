@@ -1,18 +1,86 @@
 // wgmma.mma_async wrappers for Hopper (sm_90a), bf16 inputs, float32
 // accumulators, one function per (form, N), the accumulator listed out as
 // N/2 registers a thread (PTX takes no register arrays).
-//   * SS: A and B from shared memory, both K-major (no transpose);
+//   * SS: A and B from shared memory, both K-major (no transpose); at
+//     N = 8, 16 and 32 also with A MN-major (`mma<1>`, trans-a = 1), the
+//     decode kernel's V^T;
 //   * RS: A from registers (the m16n8k16 A fragment of each warp's 16
 //     rows: four b32 of two bf16), B from shared memory, MN-major
 //     (transposed, trans-b = 1).
-// scale_d = 0 overwrites the accumulator, 1 adds to it.
+// scale_d = 0 overwrites the accumulator, 1 adds to it. Around a product:
+// fence() before it (the accumulator registers were written by threads),
+// commit() after it, wait() before its accumulator is read, then hold()
+// on each register array the product touched.
 #pragma once
 #include <stdint.h>
 
 namespace wgmma {
 
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from touching registers of an in-flight wgmma: each
+// use after the wait is ordered after it
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 template <int N> struct SS;
 template <int N> struct RS;
+
+// TA: 0 A K-major, 1 A MN-major (transposed); B K-major
+template <> struct SS<8> {
+  template <int TA = 0>
+  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
+};
+
+template <> struct SS<16> {
+  template <int TA = 0>
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
+};
+
+template <> struct SS<32> {
+  template <int TA = 0>
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
+};
 
 template <> struct SS<64> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,

@@ -186,3 +186,52 @@ def test_slstm_prefill_real_tensors_keep_the_loop():
     assert fy.shape == y.shape and fy.dtype == y.dtype
     assert {k: (v.shape, v.dtype) for k, v in fst.items()} == {
         k: (v.shape, v.dtype) for k, v in st.items()}
+
+
+# --------------------------------------------------------------------------- #
+# merge_heads on a sharded head dim (xlstm-125m's decode on the (32, 8) mesh)
+# --------------------------------------------------------------------------- #
+_MERGE_SUBPROC = """
+import json
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.device_mesh import init_device_mesh
+import torch
+from repro_torch.distributed.dtensor import merge_heads
+from repro_torch.launch import dryrun
+seen = []
+reshape = DTensor.reshape
+def recording(self, *shape):
+    # whether each mesh dim shards the last (head) dim
+    seen.append([p.is_shard(self.dim() - 1) for p in self.placements])
+    return reshape(self, *shape)
+DTensor.reshape = recording
+with dryrun.fake_world(8):
+    mesh = init_device_mesh("cpu", (1, 8), mesh_dim_names=("data", "model"))
+    # (B, nh, hd) = (2, 4, 128): nh = 4 does not divide the 8 model ranks,
+    # so the head dim carries the model shard
+    t = DTensor.from_local(torch.zeros(2, 4, 16), mesh,
+                           [Replicate(), Shard(2)], run_check=False)
+    y = merge_heads(t)
+    out = {"seen": seen, "shape": list(y.shape),
+           "placements": [str(p) for p in y.placements]}
+print("RESULT" + json.dumps(out))
+"""
+
+
+def test_merge_heads_makes_a_sharded_head_dim_whole_before_the_reshape():
+    """xlstm's ``mlstm_decode`` merges (B, nh, hd) heads whose hd is sharded
+    over ``model`` (nh = 4 does not divide 8). torch 2.11's DTensor refuses
+    to flatten a sharded inner dim, so ``merge_heads`` must hand its
+    reshape a value whose head dim is whole: the reshape sees no
+    ``Shard(2)``, and the merged value has the global (B, nh * hd)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _MERGE_SUBPROC],
+                       capture_output=True, text=True, timeout=120, env=env,
+                       cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")][0]
+    out = json.loads(line[len("RESULT"):])
+    assert out["seen"], "merge_heads did not reshape the DTensor"
+    for sharded in out["seen"]:
+        assert not any(sharded), out
+    assert out["shape"] == [2, 512]

@@ -253,6 +253,22 @@ def test_wrappers_refuse_unsupported_inputs(card):
     with pytest.raises(TypeError):
         flash_attention(q.half()[..., :32], q.half()[..., :32],
                         q.half()[..., :32])
+    # bf16 pages of 4 slots: a TMA box under a page would be 4 rows, less
+    # than the 128-byte swizzle's 8-row atom (float32 takes them)
+    qd = torch.zeros(2, 4, 64, device="cuda")
+    kp = torch.zeros(9, 4, 2, 64, device="cuda")
+    bt = torch.arange(8, device="cuda", dtype=torch.int32).reshape(2, 4)
+    cl = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
+    paged_decode_attention(qd, kp, kp, bt, cl)
+    with pytest.raises(ValueError):
+        paged_decode_attention(qd.bfloat16(), kp.bfloat16(), kp.bfloat16(),
+                               bt, cl)
+
+
+def _combines(dtype) -> int:
+    """Combine launches a decode call adds: one a float32 call; the bf16
+    kernel merges its splits itself."""
+    return int(dtype == torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -262,13 +278,17 @@ def test_paged_decode_split_edges(card, dtype, hd, H, K):
     """Contexts at the split boundaries +-1, ctx 0, and a row that ends in
     the first split beside a full one, through a block table and through
     the contiguous rows (no table); results repeat bit for bit. G = 4 and
-    G = 16 (every row of the tensor-core tile a query head)."""
-    from repro_torch.kernels.paged_attention import _sm_count, plan_splits
+    G = 16 (every column of S^T a query head). The splits are the plan's
+    (``paged_attention.plan``), the same for both layouts."""
+    from repro_torch.kernels.paged_attention import _sm_count, plan
     g = card
     B, page, MP = 4, 16, 64
     cap = page * MP
-    split, n_split = plan_splits(B, K, cap, _sm_count(0))
+    p = plan(B, H, K, hd, cap, page, _sm_count(0))
+    split, n_split = p["split"], p["n_split"]
     assert n_split > 2
+    assert (split, n_split) == (plan(B, H, K, hd, cap, cap, _sm_count(0))[
+        "split"], plan(B, H, K, hd, cap, cap, _sm_count(0))["n_split"])
     P = B * MP + 2
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
     q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
@@ -290,12 +310,91 @@ def test_paged_decode_split_edges(card, dtype, hd, H, K):
             q, ck.reshape(-1, 128, K, hd), cv.reshape(-1, 128, K, hd),
             ident, cl), dtype)
         assert (paged_decode_attention.launches,
-                paged_decode_attention.combine_launches) == (n0[0] + 3,
-                                                             n0[1] + 3)
+                paged_decode_attention.combine_launches) == (
+                    n0[0] + 3, n0[1] + 3 * _combines(dtype))
         for b, c in enumerate(ctx):
             if c == 0:
                 assert torch.count_nonzero(got[b]) == 0
                 assert torch.count_nonzero(rows[b]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,K,page", [
+    (64, 16, 4, 8), (64, 16, 4, 16), (128, 16, 4, 8), (128, 16, 4, 16),
+    (160, 4, 4, 32), (160, 4, 4, 16)],
+    ids=["hd64-G4-page8", "hd64-G4-page16", "hd128-G4-page8",
+         "hd128-G4-page16", "hd160-G1-page32", "hd160-G1-page16"])
+def test_paged_decode_pages_under_a_tile(card, dtype, hd, H, K, page):
+    """Pages smaller than the bf16 kernel's 64-key tile (one TMA box a
+    page, all completing on the tile's barrier), and hd 160 (three
+    64-column boxes, the last half zero-filled) at G = 1: contexts on each
+    split edge +-1, inside a page, ctx 0 and full, against the plain
+    version and against contiguous rows; bit-equal on repeat. A softcap
+    on the last call."""
+    from repro_torch.kernels.paged_attention import _sm_count, plan
+    g = card
+    B, MP = 4, 512 // page
+    cap = page * MP
+    p = plan(B, H, K, hd, cap, page, _sm_count(0))
+    split, n_split = p["split"], p["n_split"]
+    assert p["box"] == min(page, 64)
+    P = B * MP + 3
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
+    bt = torch.randperm(P, generator=torch.Generator().manual_seed(2))[
+        :B * MP].reshape(B, MP).int().cuda()
+    rows_k = kp[bt.long()].reshape(B, cap, K, hd)
+    rows_v = vp[bt.long()].reshape(B, cap, K, hd)
+    edges = sorted({c for e in range(1, n_split)
+                    for c in (e * split - 1, e * split, e * split + 1)
+                    if 0 < c <= cap} | {0, 1, page - 1, page + 3, cap})
+    for i in range(0, len(edges), B):
+        ctx = [edges[(i + j) % len(edges)] for j in range(B)]
+        cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        soft = 20.0 if i + B >= len(edges) else None
+        want = ref.paged_decode_attention(q, kp, vp, bt, cl, softcap=soft)
+        n0 = (paged_decode_attention.launches,
+              paged_decode_attention.combine_launches)
+        got = paged_decode_attention(q, kp, vp, bt, cl, softcap=soft)
+        _close(got, want, dtype)
+        assert torch.equal(got, paged_decode_attention(q, kp, vp, bt, cl,
+                                                       softcap=soft))
+        _close(ops.decode_attention(q, rows_k, rows_v, cl, softcap=soft),
+               want, dtype)
+        assert (paged_decode_attention.launches,
+                paged_decode_attention.combine_launches) == (
+                    n0[0] + 3, n0[1] + 3 * _combines(dtype))
+        for b, c in enumerate(ctx):
+            if c == 0:
+                assert torch.count_nonzero(got[b]) == 0
+
+
+@pytest.mark.parametrize("G", [2, 3, 5, 6, 7, 8, 9, 12, 16])
+def test_paged_decode_every_group_size(card, G):
+    """Query heads a kv head beyond the G = 1 and 4 of the configs: the
+    bf16 kernel's three builds (up to 4, 8 and 16 heads) at every size
+    between, with padded S^T and O^T columns, against the plain version;
+    float32 beside. Two kv heads, a softcap, contexts 0, 1, a page edge,
+    a split edge and full."""
+    from repro_torch.kernels.paged_attention import _sm_count, plan
+    g = card
+    B, K, hd, page, MP = 5, 2, 64, 16, 40
+    cap = page * MP
+    split = plan(B, G * K, K, hd, cap, page, _sm_count(0))["split"]
+    P = B * MP + 1
+    bt = torch.randperm(P, generator=torch.Generator().manual_seed(3))[
+        :B * MP].reshape(B, MP).int().cuda()
+    cl = torch.tensor([0, 1, page + 1, split + 1, cap], dtype=torch.int32,
+                      device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g,
+                                     device="cuda").to(dtype)
+        q, kp, vp = rnd(B, G * K, hd), rnd(P, page, K, hd), rnd(P, page, K,
+                                                                 hd)
+        got = paged_decode_attention(q, kp, vp, bt, cl, softcap=30.0)
+        _close(got, ref.paged_decode_attention(q, kp, vp, bt, cl,
+                                               softcap=30.0), dtype)
+        assert torch.count_nonzero(got[0]) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

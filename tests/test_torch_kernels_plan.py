@@ -123,4 +123,4 @@ def test_build_key_follows_headers_and_flags(tmp_path, monkeypatch):
 
 def test_flash_library_key_covers_the_wgmma_header():
     names = [p.name for p in build.sources("flash_prefill")]
-    assert names == ["flash_prefill.cu", "wgmma.cuh"]
+    assert names == ["flash_prefill.cu", "tma.cuh", "wgmma.cuh"]

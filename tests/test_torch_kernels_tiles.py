@@ -3,7 +3,7 @@ against the plain versions in ``repro_torch.kernels.ref`` (and so, through
 ``test_torch_kernels*.py``, against the JAX oracles):
 
 * the split-KV decode kernel: float32 partials (m, l, acc) of each key
-  range that ``plan_splits`` gives, merged by log-sum-exp;
+  range that ``paged_attention.plan`` gives, merged by log-sum-exp;
 * the flash kernel's tile skipping (``tile_plan``, the kernel's pre-pass
   rule in plain PyTorch, at the tile sizes the kernel runs: 64 q rows a
   consumer warpgroup, 64 or 128 keys, as ``flash_prefill.plan`` picks
@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import TILE, plan  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    SPLIT_ALIGN, plan_splits)
+    TILE as SPLIT_ALIGN, plan as decode_plan)
 from repro_torch.kernels.ref import NEG_INF, POS_INVALID  # noqa: E402
 from repro_torch.serving.engine import packed_chunk_layout  # noqa: E402
 
@@ -47,7 +47,8 @@ def split_kv_decode(q, k_pages, v_pages, block_tables, context_lens, *,
     _, page, K, _ = k_pages.shape
     G = H // K
     MP = block_tables.shape[1]
-    split, n_split = plan_splits(B, K, MP * page, n_sm)
+    p = decode_plan(B, H, K, hd, MP * page, page, n_sm)
+    split, n_split = p["split"], p["n_split"]
     keys = k_pages[block_tables.long()].reshape(B, MP * page, K, hd).float()
     vals = v_pages[block_tables.long()].reshape(B, MP * page, K, hd).float()
     qf = q.float().reshape(B, K, G, hd)
@@ -79,29 +80,37 @@ def split_kv_decode(q, k_pages, v_pages, block_tables, context_lens, *,
 
 
 def test_plan_splits_takes_shapes_only():
-    params = list(inspect.signature(plan_splits).parameters)
-    assert params == ["batch", "kv_heads", "capacity", "n_sm"]
-    assert plan_splits(8, 8, 2048) == (256, 8)        # the serving shape
+    params = list(inspect.signature(decode_plan).parameters)
+    assert params == ["batch", "heads", "kv_heads", "hd", "capacity", "page",
+                      "n_sm"]
+    p = decode_plan(8, 32, 8, 128, 2048, 2048)        # the serving shape
+    assert (p["split"], p["n_split"]) == (512, 4)
     for B, K, cap in [(1, 1, 64), (1, 1, 2048), (3, 2, 1000), (8, 8, 2048),
                       (64, 8, 32768), (4, 4, 96), (2, 8, 100)]:
-        split, n = plan_splits(B, K, cap)
+        p = decode_plan(B, 4 * K, K, 128, cap, cap)
+        split, n = p["split"], p["n_split"]
         assert split % SPLIT_ALIGN == 0 and split >= SPLIT_ALIGN
         assert split * n >= cap > split * (n - 1)
-        # at least two CTAs an SM wherever the capacity allows it
-        assert B * K * n >= min(2 * 132, B * K * (cap // SPLIT_ALIGN))
+        # at most one wave of the CTAs an SM holds (or the rows alone
+        # where they fill it), and at least half of the splits that fit
+        # it, as far as the capacity has tiles for them
+        slots = p["ctas_per_sm"] * 132
+        assert B * K * n <= max(slots, B * K)
+        assert 2 * n >= min(slots // (B * K), cap // SPLIT_ALIGN)
 
 
 @pytest.mark.parametrize("softcap", [None, 25.0])
 @pytest.mark.parametrize("B,H,K,hd,page,MP", [
     (4, 8, 2, 64, 16, 64),      # 1024 slots: 16 splits of 64
-    (8, 32, 8, 128, 128, 16),   # the serving shape: 8 splits of 256
+    (8, 32, 8, 128, 128, 16),   # the serving shape: 4 splits of 512
     (3, 8, 1, 32, 8, 7),        # one split
 ])
 def test_split_kv_model_matches_plain(B, H, K, hd, page, MP, softcap):
     rng = np.random.default_rng(7)
     P = B * MP + 2
     cap = MP * page
-    split, n = plan_splits(B, K, cap)
+    p = decode_plan(B, H, K, hd, cap, page)
+    split, n = p["split"], p["n_split"]
     q = _t(rng.standard_normal((B, H, hd)))
     kp = _t(rng.standard_normal((P, page, K, hd)))
     vp = _t(rng.standard_normal((P, page, K, hd)))
