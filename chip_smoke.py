@@ -13,9 +13,11 @@ Phases (any failure raises and exits non-zero):
   2. build both kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
      print build seconds and ptxas registers / shared memory; fail if
      ptxas serialises a wgmma of either kernel, if a bf16 decode instance
-     spills, or if the SASS of a ``flash_bf16_kernel`` or
-     ``paged_decode_bf16_kernel`` instance lacks HGMMA (wgmma) or UTMALDG
-     (TMA); print the bf16 flash plan (tiles, stages, shared memory) of
+     spills, or if the SASS of a ``flash_bf16_kernel`` instance lacks
+     HGMMA (wgmma) or UTMALDG (TMA), or that of a
+     ``paged_decode_bf16_kernel`` instance lacks HGMMA or its copy
+     (UTMALDG, or LDGSTS in the cp.async instances for pages that are not
+     a multiple of 8 slots); print the bf16 flash plan (tiles, stages, shared memory) of
      each serving shape and the decode plan (splits, CTAs an SM, waves,
      stages, boxes) of each serving decode shape;
   3. each kernel against its plain PyTorch version on the card, float32
@@ -27,12 +29,16 @@ Phases (any failure raises and exits non-zero):
      128-row edge, Sq and Sk not multiples of 128, hd 112 and 160 causal
      and over a prefix), at hd 96, 112 and 160 with G = 1 and
      G = 4 (flash causal and over a prefix; decode at ctx 0, 1, page and
-     split edges +-1, full), and at the serving paths' shapes (qwen3:
+     split edges +-1, full, in pages of 16 slots and, at hd 128, of 12:
+     the bf16 kernel's cp.async copy), and at the serving paths' shapes (qwen3:
      packed prefill, a chunk over a cache row, a packed chunk wave, decode
      at hd 128; zamba2: causal prefill (1, 1536, 32, 112), decode
      (8, 2048, 32, 112); mistral-nemo: causal prefill (1, 10240, 32, 128)
      under the 8192 window with G = 4, decode over four full 8192-slot
-     rings; phi3-vision: causal prefill (2, 1152, 32, 96)); at those nine,
+     rings; phi3-vision: causal prefill (2, 1152, 32, 96)), and the
+     (8, 2048) decode row's heads and contexts in pages of 12 slots under
+     a shuffled block table (SDPA over the same keys gathered into rows,
+     the gather not timed); at those ten,
      time kernel, plain version and one library call (SDPA, bool mask,
      ``enable_gqa``), and each flash shape also under the other q tile,
      and log each decode shape's plan and the decode wrapper's host
@@ -127,7 +133,9 @@ Phases (any failure raises and exits non-zero):
         group: a fake process group of 256 ranks, fake tensors, the
         production (32, 8) mesh; qwen3-8b at all four shapes, zamba2-7b
         decode_32k, phi3.5-MoE prefill_32k and arctic-480b train_4k at
-        full size must all trace; prints bytes a card, fits-80GB, the
+        full size, and on the multi-pod (2, 32, 8) mesh of 512 ranks
+        qwen3-8b prefill_32k (a batch of 32 over 64 batch ranks) and
+        arctic-480b decode_32k, must all trace; prints bytes a card, fits-80GB, the
         roofline terms and the bottleneck; then the two shapes of 12b on a
         fake (1, 1) mesh, for their per-card totals;
      b. qwen3-8b at full width and depth, bf16, seeded, through
@@ -174,6 +182,9 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 WINDOW = 8192
 # the prefill_32k / decode_32k context (``SHAPES`` in launch/shapes.py)
 LONG = 32768
+# a page that is not a multiple of 8 slots: the bf16 decode kernel copies
+# such pages by cp.async (``paged_attention.plan``'s "cp.async" copy)
+SMALL_PAGE = 12
 SPANS = ("engine.prefill_wave", "engine.prefill_chunks", "engine.decode")
 MOE_SPAN = "model.moe"      # nested inside SPANS: a MoE layer's routing + FFN
 
@@ -284,32 +295,36 @@ def _check_flash_build(build, ptxas: str) -> None:
 def _check_decode_build(build, ptxas: str) -> None:
     """The bf16 decode kernel is the TMA / wgmma one: ptxas serialises no
     wgmma and spills nothing in any ``paged_decode_bf16_kernel`` instance,
-    and the SASS of each holds ``UTMALDG`` (TMA loads) and ``HGMMA``
-    (wgmma). Prints each instance's registers and the plan of each serving
-    decode shape."""
+    and the SASS of each holds ``HGMMA`` (wgmma) and its producer's copy:
+    ``UTMALDG`` (TMA loads) in the TMA instances, ``LDGSTS`` (cp.async) in
+    the cp.async ones (pages not a multiple of 8 slots). Prints each
+    instance's registers and the plan of each serving decode shape."""
     from repro_torch.kernels.paged_attention import plan
     _no_serial_wgmma("paged_decode", ptxas)
     spilled = []
     for fn, rg, st, ld in _ptxas_usage(ptxas):
-        m = re.search(r"paged_decode_bf16_kernelILi(\d+)ELi(\d+)", fn)
+        m = re.search(r"paged_decode_bf16_kernelILi(\d+)ELi(\d+)ELb(\d)", fn)
         if m:
             log(f"[2 build]   decode bf16 hd {m[1]}, up to {m[2]} heads a "
-                f"kv head: {rg} registers, {st} / {ld} bytes spill stores "
-                f"/ loads")
+                f"kv head, {'cp.async' if m[3] == '1' else 'TMA'}: {rg} "
+                f"registers, {st} / {ld} bytes spill stores / loads")
             if st or ld:
                 spilled.append(fn)
     if spilled:
         raise AssertionError(f"paged_decode_bf16_kernel spills: {spilled}")
     found = _sass_ops(build, "paged_decode", "paged_decode_bf16_kernel",
-                      ("HGMMA", "UTMALDG"))
-    missing = [f for f, ops in found.items() if ops != {"HGMMA", "UTMALDG"}]
-    # 6 head dims x 3 builds (up to 4, 8, 16 heads a kv head)
-    if len(found) != 18 or missing:
-        raise AssertionError(f"paged_decode_bf16_kernel without HGMMA / "
-                             f"UTMALDG in its SASS: "
-                             f"{missing or f'{len(found)} instances'}")
+                      ("HGMMA", "UTMALDG", "LDGSTS"))
+    copy = {f: "LDGSTS" if re.search(r"ELb1E", f) else "UTMALDG"
+            for f in found}
+    wrong = [f for f, ops in found.items() if ops != {"HGMMA", copy[f]}]
+    # 6 head dims x 3 builds (up to 4, 8, 16 heads a kv head) x 2 copies
+    if len(found) != 36 or wrong or sum(c == "LDGSTS"
+                                        for c in copy.values()) != 18:
+        raise AssertionError(f"paged_decode_bf16_kernel without HGMMA and "
+                             f"its copy (UTMALDG or LDGSTS alone) in its "
+                             f"SASS: {wrong or f'{len(found)} instances'}")
     log(f"[2 build]   SASS: {len(found)} paged_decode_bf16_kernel "
-        f"instances, each with HGMMA and UTMALDG")
+        f"instances, each with HGMMA, 18 with UTMALDG and 18 with LDGSTS")
     for label, shape in DECODE_PLAN_SHAPES:
         log(f"[2 build]   decode plan {label}: {_plan_line(plan(*shape))}")
 
@@ -317,8 +332,9 @@ def _check_decode_build(build, ptxas: str) -> None:
 def _plan_line(p: dict) -> str:
     return (f"{p['n_split']} splits of {p['split']} keys, {p['grid']} CTAs "
             f"at {p['ctas_per_sm']} an SM ({p['waves']:.3f} waves), "
-            f"{p['stages']} stages of {p['tile']} keys, boxes of {p['box']} "
-            f"rows, {p['smem']} bytes of shared memory")
+            f"{p['stages']} stages of {p['tile']} keys, "
+            + (f"TMA boxes of {p['box']} rows" if p.get("copy", "tma") == "tma"
+               else "cp.async") + f", {p['smem']} bytes of shared memory")
 
 
 # (B, H, K, hd, capacity, page) of the serving path's decode calls
@@ -574,18 +590,19 @@ def _flash_plan(**force):
 def _decode_edge_cases(torch, dtype, gen):
     """Yield (label, q, k_pages, v_pages, block_tables, context_lens) at
     contexts on the split boundaries +-1, ctx 0, page edges +-1, and a row
-    ending in the first split beside a full one: at hd 128 (G = 4), and at
+    ending in the first split beside a full one: at hd 128 (G = 4) in
+    pages of 16 slots and of 12 (the bf16 kernel's cp.async copy), and at
     each new head dim with G = 1 and G = 4."""
     from repro_torch.kernels.paged_attention import _sm_count, plan
-    page, MP = 16, 64
-    cap = page * MP
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    for hd, H, K in [(128, 16, 4)] + [(hd, H, K) for hd in HEAD_DIMS_NEW
-                                      for H, K in ((4, 4), (16, 4))]:
-        B = 4
+    for page, hd, H, K in [(16, 128, 16, 4), (12, 128, 16, 4)] + [
+            (16, hd, H, K) for hd in HEAD_DIMS_NEW
+            for H, K in ((4, 4), (16, 4))]:
+        B, MP = 4, -(-1024 // page)
+        cap = page * MP
         p = plan(B, H, K, hd, cap, page, _sm_count(0))
         split, n = p["split"], p["n_split"]
         P = B * MP + 2
@@ -596,8 +613,8 @@ def _decode_edge_cases(torch, dtype, gen):
                     [2 * split + 1, 2 * split - 1, split * (n - 1), 0],
                     [page - 1, page, page + 1, 2 * page + 1]):
             cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-            yield (f"hd{hd} G{H // K} split {split} x {n}, ctx {ctx}", q, kp,
-                   vp, bt, cl)
+            yield (f"hd{hd} G{H // K} page {page} split {split} x {n}, "
+                   f"ctx {ctx}", q, kp, vp, bt, cl)
 
 
 
@@ -772,6 +789,8 @@ def phase_kernels(torch, seed: int) -> dict:
     ctx[0], ctx[1] = 1, C
     paged_recs = [_decode_serving(torch, gen, ctx, H, K, hd, paged_errs)
                   for H, K, hd in ((32, 8, 128), (32, 32, 112))]
+    # the (8, 2048) row's heads and contexts in pages of SMALL_PAGE slots
+    paged_recs.insert(1, _decode_small_pages(torch, gen, ctx, paged_errs))
     # phase 9a's decode: four full rings of WINDOW slots
     rings = torch.full((4,), WINDOW, dtype=torch.int32, device="cuda")
     paged_recs.insert(0, _decode_serving(torch, gen, rings, 32, 8, 128,
@@ -930,7 +949,67 @@ def _decode_serving(torch, gen, ctx, H: int, K: int, hd: int,
         iters=50)
     return dict(rec, shape=label, max_abs_err=err, host_us=host_us,
                 plan={k: p[k] for k in ("split", "n_split", "ctas_per_sm",
-                                        "waves", "stages", "box")})
+                                        "waves", "stages", "copy", "box")})
+
+
+def _decode_small_pages(torch, gen, ctx, paged_errs, H: int = 32, K: int = 8,
+                        hd: int = 128, page: int = SMALL_PAGE) -> dict:
+    """The (8, 2048) serving row's heads and contexts in pages of ``page``
+    slots (not a multiple of 8: the bf16 kernel's cp.async copy) under a
+    shuffled block table of MP = ceil(2048 / page) pages a row: checked in
+    f32 and bf16, then kernel and plain version timed in bf16 beside SDPA
+    over the same keys gathered into rows (the gather not timed). Nothing
+    on the serving path launches this shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        _sm_count, paged_decode_attention, plan)
+    dt = torch.bfloat16
+    B = ctx.shape[0]
+    MP = -(-2048 // page)
+    P = B * MP + 5
+    kp = torch.randn(P, page, K, hd, generator=gen, device="cuda").to(dt)
+    vp = torch.randn(P, page, K, hd, generator=gen, device="cuda").to(dt)
+    qd = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    bt = torch.randperm(P, generator=gen, device="cuda")[:B * MP].reshape(
+        B, MP).int()
+    label = f"({B},{MP}x{page},{K},{hd}) H{H} ctx {ctx.tolist()}"
+    for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
+        a, b_, c_ = qd.to(dtype), kp.to(dtype), vp.to(dtype)
+        got = paged_decode_attention(a, b_, c_, bt, ctx)
+        _check(torch, f"paged pages of {page} {label}", got,
+               ref.paged_decode_attention(a, b_, c_, bt, ctx), dn,
+               paged_errs)
+        if not torch.equal(got, paged_decode_attention(a, b_, c_, bt, ctx)):
+            raise AssertionError(f"paged pages of {page}: not repeatable")
+    err = paged_errs[-1]
+    p = plan(B, H, K, hd, MP * page, page, _sm_count(0))
+    if p["copy"] != "cp.async":
+        raise AssertionError(f"pages of {page}: plan {p}")
+    C = MP * page
+    dmask = torch.arange(C, device="cuda")[None] < ctx[:, None].long()
+    toks = int(ctx.sum())
+
+    def rows(t):
+        return t[bt.long()].reshape(B, C, K, hd)
+
+    log(f"[3 kernels] paged_decode pages of {page} {label} plan: "
+        f"{_plan_line(p)}")
+    rec = _measure(
+        torch, f"paged_decode pages of {page} {label}",
+        (qd, kp, vp, rows(kp), rows(vp)),
+        lambda q, k, v, rk, rv: paged_decode_attention(q, k, v, bt, ctx),
+        lambda q, k, v, rk, rv: ref.paged_decode_attention(q, k, v, bt, ctx),
+        lambda q, k, v, rk, rv: F.scaled_dot_product_attention(
+            q[:, :, None], rk.transpose(1, 2), rv.transpose(1, 2),
+            attn_mask=dmask[:, None, None], enable_gqa=True),
+        flops=4.0 * toks * H * hd,
+        nbytes=2.0 * (2 * toks * K * hd + 2 * qd.numel())
+        + 4.0 * (B + B * MP), iters=50)
+    return dict(rec, shape=f"pages of {page} {label}", max_abs_err=err,
+                host_us=None,
+                plan={k: p[k] for k in ("split", "n_split", "ctas_per_sm",
+                                        "waves", "stages", "copy", "box")})
 
 
 def _host_us(torch, call, n: int = 100, batches: int = 30) -> float:
@@ -1066,25 +1145,16 @@ def phase_main_path(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # an older checkout (``--profile-src``) has no combine kernel, or one
-    # that follows every launch (no ``plan``: its bf16 kernel does not
-    # merge its own splits)
-    has_combine = hasattr(paged_decode_attention, "combine_launches")
-    merges = hasattr(sys.modules[paged_decode_attention.__module__], "plan")
     flash_attention.launches = 0
     flash_attention.plans = {}
     paged_decode_attention.launches = 0
     paged_decode_attention.plans = {}
-    if has_combine:
-        paged_decode_attention.combine_launches = 0
     t0 = time.monotonic()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {"flash_prefill": flash_attention.launches,
                 "paged_decode": paged_decode_attention.launches}
-    combine = paged_decode_attention.combine_launches if has_combine \
-        else None
 
     for g in reqs:
         if g.t_done is None or len(g.output) != g.params.max_new_tokens:
@@ -1098,14 +1168,10 @@ def phase_main_path(torch, seed: int) -> dict:
         if n <= 0 or n % L:
             raise AssertionError(f"{name}: {n} launches, not a positive "
                                  f"multiple of {L}")
-    combines = _combines(cfg.dtype, launches["paged_decode"]) if merges \
-        else launches["paged_decode"]
-    if launches["paged_decode"] != L * eng.decode_iters \
-            or combine not in (None, combines):
+    if launches["paged_decode"] != L * eng.decode_iters:
         raise AssertionError(
-            f"paged_decode: {launches['paged_decode']} launches and {combine}"
-            f" combines for {eng.decode_iters} decode iterations of {L} "
-            f"layers")
+            f"paged_decode: {launches['paged_decode']} launches for "
+            f"{eng.decode_iters} decode iterations of {L} layers")
     if eng.n_blocking_syncs:
         raise AssertionError(f"blocking syncs on the main path: "
                              f"{eng.sync_counts}")
@@ -1127,7 +1193,6 @@ def phase_main_path(torch, seed: int) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "sync_counts": dict(eng.sync_counts),
         "launches": launches,
-        "paged_decode_combine_launches": combine,
         # bf16 decode launches by (split, splits, stages, box) of their plan
         "decode_plans": {"x".join(map(str, k)): n for k, n in getattr(
             paged_decode_attention, "plans", {}).items()},
@@ -1207,9 +1272,7 @@ def read_profile(prof) -> dict:
     top = sorted(((v[0], v[1], k) for k, v in by_name.items()),
                  reverse=True)[:8]
     return {"groups": groups, "group_launches": group_n, "span_us": span_us,
-            "span_launches": span_n, "top": top, "moe_us": moe_us,
-            "combine_launches": sum(v[1] for k, v in by_name.items()
-                                    if "paged_decode_combine" in k)}
+            "span_launches": span_n, "top": top, "moe_us": moe_us}
 
 
 def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
@@ -1263,7 +1326,6 @@ def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
            "idle_share": 1.0 - busy_us / 1e6 / wall if busy_us else None,
            "kernel_ms": {k: v / 1e3 for k, v in groups.items()},
            "kernel_launches": rp["group_launches"],
-           "paged_decode_combine_launches": rp["combine_launches"],
            "prefill_device_ms_per_call": ms_per(pf_us, n_pf),
            "decode_device_ms_per_iter": ms_per(dec_us, iters),
            "decode_kernel_ms_per_iter": ms_per(groups["paged_decode"], iters),
@@ -1453,32 +1515,22 @@ def _zero_launches() -> None:
     from repro_torch.kernels.paged_attention import paged_decode_attention
     flash_attention.launches = 0
     paged_decode_attention.launches = 0
-    paged_decode_attention.combine_launches = 0
     paged_decode_attention.plans = {}
 
 
-def _combines(dtype: str, decodes: int) -> int:
-    """Combine launches that ``decodes`` decode launches in ``dtype``
-    make: one each in float32, none in bf16 (its kernel merges its splits
-    itself)."""
-    return decodes if dtype == "float32" else 0
-
-
-def _read_launches(tag: str, L: int, dtype: str, decode_iters=None) -> dict:
+def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
     """The counts since ``_zero_launches``: flash a positive multiple of
-    the depth, decode a multiple with its combines (``_combines``), and,
+    the depth, decode a positive multiple of it, and,
     when the path's windows all ran to their end, depth x decode
     iterations."""
     from repro_torch.kernels.flash_prefill import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     n = {"flash_prefill": flash_attention.launches,
-         "paged_decode": paged_decode_attention.launches,
-         "combine": paged_decode_attention.combine_launches}
+         "paged_decode": paged_decode_attention.launches}
     if n["flash_prefill"] <= 0 or n["flash_prefill"] % L:
         raise AssertionError(f"[{tag}] flash_prefill: {n} launches, not a "
                              f"positive multiple of {L}")
-    if n["paged_decode"] <= 0 or n["paged_decode"] % L \
-            or n["combine"] != _combines(dtype, n["paged_decode"]):
+    if n["paged_decode"] <= 0 or n["paged_decode"] % L:
         raise AssertionError(f"[{tag}] paged_decode: {n}")
     if decode_iters is not None and n["paged_decode"] != L * decode_iters:
         raise AssertionError(f"[{tag}] paged_decode: {n['paged_decode']} "
@@ -1519,7 +1571,7 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = _read_launches(tag, n_attn or L, cfg.dtype, eng.decode_iters)
+    launches = _read_launches(tag, n_attn or L, eng.decode_iters)
     for g in reqs:
         if g.status != "completed" or \
                 len(g.output) != g.params.max_new_tokens:
@@ -1595,8 +1647,7 @@ def phase_kv_roundtrip(torch, cfg, params, seed: int) -> dict:
     if g.status != "completed" or len(g.output) != 32:
         raise AssertionError(f"[6a] B did not finish the request: "
                              f"{g.status}, {len(g.output)}/32 tokens")
-    launches = _read_launches("6a", L, cfg.dtype,
-                              a.decode_iters + b.decode_iters)
+    launches = _read_launches("6a", L, a.decode_iters + b.decode_iters)
     image_mb = sum(t.numel() * t.element_size()
                    for t in payload["kv"][ATTN].values()) / 1e6
     res = {"ctx": ctx, "image_mb": image_mb, "export_s": t_export,
@@ -1625,7 +1676,7 @@ def phase_fleet_run(torch, smi: str, cfg, params, seed: int, roles) -> dict:
     wall = time.monotonic() - t0
     engines = [i.engine for i in fleet.instances]
     iters = sum(e.decode_iters for e in engines)
-    launches = _read_launches(tag, L, cfg.dtype, iters)
+    launches = _read_launches(tag, L, iters)
     for g in reqs:
         if g.status != "completed" or \
                 len(g.output) != g.params.max_new_tokens:
@@ -1700,7 +1751,7 @@ def phase_chaos(torch, cfg, params, seed: int) -> dict:
     torch.cuda.synchronize()
     # a kill can cut a megastep window short: its launched iterations are
     # never replayed, so decode launches are checked as a multiple only
-    launches = _read_launches("6d chaos", cfg.num_layers, cfg.dtype)
+    launches = _read_launches("6d chaos", cfg.num_layers)
     for i, (g, r) in enumerate(zip(reqs, ref_reqs)):
         if g.output != r.output:
             j = next((j for j, (x, y) in enumerate(zip(g.output, r.output))
@@ -1743,10 +1794,9 @@ def phase_fleet(torch, smi: str, params, chaos: dict, seed: int) -> dict:
     parts["6d"] = chaos
     launches = {k: sum(p["launches"][k] for p in parts.values())
                 for k in ("flash_prefill", "paged_decode")}
-    combine = sum(p["launches"]["combine"] for p in parts.values())
     log(f"[6 fleet] phase 6a-6c took {time.monotonic() - t0:.1f}s, 6d "
         f"{chaos['seconds']:.1f}s; launches {launches}")
-    return {"parts": parts, "launches": launches, "combine_launches": combine}
+    return {"parts": parts, "launches": launches}
 
 
 # --------------------------------------------------------------------------- #
@@ -1792,7 +1842,7 @@ def phase_zamba_parity(torch, seed: int) -> dict:
     _zero_launches()
     _, params = phase_parity(torch, seed, cfg, "7b")
     del params
-    launches = _read_launches("7b", 2, cfg.dtype)
+    launches = _read_launches("7b", 2)
     return {"seconds": time.monotonic() - t0, "launches": launches}
 
 
@@ -1896,7 +1946,7 @@ def phase_moe_parity(torch, seed: int) -> dict:
     _, params = phase_parity(torch, seed, cfg, "8b")
     del params
     return {"seconds": time.monotonic() - t0,
-            "launches": _read_launches("8b", cfg.num_layers, cfg.dtype)}
+            "launches": _read_launches("8b", cfg.num_layers)}
 
 
 def _ring_workload(cfg, seed: int):
@@ -1957,7 +2007,7 @@ def phase_ring_parity(torch, seed: int) -> dict:
                              lens=[(8300, 24), (8700, 24)])
     del params
     return {"seconds": time.monotonic() - t0,
-            "launches": _read_launches("9b", cfg.num_layers, cfg.dtype)}
+            "launches": _read_launches("9b", cfg.num_layers)}
 
 
 def phase_embeds(torch, seed: int) -> dict:
@@ -1993,7 +2043,7 @@ def phase_embeds(torch, seed: int) -> dict:
                                   cache)
         errs.append((lg - full[:, F + S + t]).abs().max().item())
     torch.cuda.synchronize()
-    launches = _read_launches("10", cfg.num_layers, cfg.dtype, T)
+    launches = _read_launches("10", cfg.num_layers, T)
     res = {"max_abs_err_prefill": errs[0], "max_abs_err_decode": max(errs[1:]),
            "launches": launches, "seconds": time.monotonic() - t0}
     if not all(math.isfinite(e) and e < 2e-3 for e in errs):
@@ -2159,11 +2209,18 @@ def phase_train_parity(torch, seed: int) -> dict:
 # --------------------------------------------------------------------------- #
 # phase 12: sharding and launch
 # --------------------------------------------------------------------------- #
-DRYRUN_COMBOS = [("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
-                 ("qwen3-8b", "decode_32k"), ("qwen3-8b", "long_500k"),
-                 ("zamba2-7b", "decode_32k"),
-                 ("phi3.5-moe-42b-a6.6b", "prefill_32k"),
-                 ("arctic-480b", "train_4k")]
+# (arch, shape, on the multi-pod (2, 32, 8) mesh of 512 ranks): the
+# multi-pod prefill_32k shards a batch of 32 over 64 batch ranks (padded
+# rows), and arctic's decode contracts its experts inside each pod
+DRYRUN_COMBOS = [("qwen3-8b", "train_4k", False),
+                 ("qwen3-8b", "prefill_32k", False),
+                 ("qwen3-8b", "decode_32k", False),
+                 ("qwen3-8b", "long_500k", False),
+                 ("zamba2-7b", "decode_32k", False),
+                 ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
+                 ("arctic-480b", "train_4k", False),
+                 ("qwen3-8b", "prefill_32k", True),
+                 ("arctic-480b", "decode_32k", True)]
 # 12b's cuts of the production shapes' global batch (the whole batch is a
 # data-parallel one over 32 cards): one prompt of 32768 tokens; 8 rows of
 # 32768 slots (38.65 GB of caches beside 16.4 GB of weights)
@@ -2173,8 +2230,9 @@ SHARDED_STEPS = 3                   # timed steps of each after a warm one
 
 def phase_dryrun(torch) -> dict:
     """12a: ``repro_torch.launch.dryrun`` on the host: a fake process group
-    of 256 ranks, fake tensors, the production (32, 8) mesh; each combo of
-    ``DRYRUN_COMBOS`` at its full size must trace (``ok``); prints the
+    of 256 ranks, fake tensors, the production (32, 8) mesh, or 512 ranks
+    and the multi-pod (2, 32, 8) mesh; each combo of ``DRYRUN_COMBOS`` at
+    its full size must trace (``ok``); prints the
     per-device bytes, whether they fit 80 GB, the roofline terms and the
     bottleneck. Then the two shapes of 12b at their cut batches on a fake
     (1, 1) mesh: the per-device totals 12b holds the card's peak to."""
@@ -2189,16 +2247,18 @@ def phase_dryrun(torch) -> dict:
     with ProcessPoolExecutor(max_workers=len(DRYRUN_COMBOS),
                              mp_context=multiprocessing.get_context(
                                  "spawn")) as pool:
-        futures = [pool.submit(dryrun.sweep, [arch], [shape], [False],
-                               None, False) for arch, shape in DRYRUN_COMBOS]
+        futures = [pool.submit(dryrun.sweep, [arch], [shape], [multi],
+                               None, False)
+                   for arch, shape, multi in DRYRUN_COMBOS]
         found = [f.result()[0] for f in futures]
     recs = []
-    for (arch, shape), rec in zip(DRYRUN_COMBOS, found):
+    for (arch, shape, _), rec in zip(DRYRUN_COMBOS, found):
         if rec["status"] != "ok":
-            raise AssertionError(f"[12a dryrun] {arch} {shape}: "
-                                 f"{rec['status']} {rec.get('error')}")
+            raise AssertionError(f"[12a dryrun] {arch} {shape} "
+                                 f"{rec['mesh']}: {rec['status']} "
+                                 f"{rec.get('error')}")
         ro = rec["roofline"]
-        log(f"[12a dryrun] {arch} {shape} 32x8: "
+        log(f"[12a dryrun] {arch} {shape} {rec['mesh']}: "
             f"{rec['mem_per_device'] / 1e9:.3f} GB a card "
             f"(argument {rec['mem_bytes']['argument'] / 1e9:.3f}, temp "
             f"{rec['mem_bytes']['temp'] / 1e9:.3f}, output "
@@ -2258,8 +2318,7 @@ def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
         port = sk.getsockname()[1]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=0, world_size=1)
-    out = {"card": smi, "launches": {"flash_prefill": 0, "paged_decode": 0,
-                                     "combine": 0}}
+    out = {"card": smi, "launches": {"flash_prefill": 0, "paged_decode": 0}}
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
@@ -2291,11 +2350,9 @@ def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
                 times.append(1e3 * (time.monotonic() - t1))
             step_ms = statistics.median(times)
             n = {"flash_prefill": flash_attention.launches,
-                 "paged_decode": paged_decode_attention.launches,
-                 "combine": paged_decode_attention.combine_launches}
+                 "paged_decode": paged_decode_attention.launches}
             want = {"flash_prefill": 0 if decode else L,
-                    "paged_decode": L if decode else 0,
-                    "combine": _combines(cfg.dtype, L) if decode else 0}
+                    "paged_decode": L if decode else 0}
             if n != want:
                 raise AssertionError(f"[12b {name}] launches {n}, want "
                                      f"{want}")
@@ -2425,9 +2482,6 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_attention.py:122",
          "launches": launches["paged_decode"],
-         "combine_launches": main["paged_decode_combine_launches"]
-         + fleet["combine_launches"] + sum(
-             serving[k]["combine"] for k in ("7a", "8a", "9a", "12b")),
          **{k: kern["paged_decode"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "share_of_bound")},

@@ -11,6 +11,11 @@ cold in L2, CUDA-graph replay.
 ``--src`` takes the ``src/`` of another checkout (unpacked with ``git
 archive`` into a git-ignored directory), so that two versions are compared
 inside one call, in turns (parent, change, change, parent).
+``--f32-out FILE`` also saves the float32 decode outputs at ``chip_smoke.py``
+phase 3's float32 decode inputs (its block-table sweep, split and page
+edges, and the serving shapes, drawn from one seed) to FILE, and
+``--f32-equal FILE...`` (no card needed) says whether such files hold
+the same outputs bit for bit.
 ``--occupancy-plan`` runs a checkout whose decode wrapper still splits by
 ``plan_splits`` (the ``mma.sync`` kernel, sized for 4 CTAs an SM) with
 splits sized for the CTAs that kernel really keeps resident (whole waves
@@ -54,9 +59,8 @@ def occupancy_plan(hd: int):
 
 
 def _kernel_us(torch, call, n: int = 20) -> dict:
-    """Device microseconds a call of each kernel ``call`` launches (the
-    split kernel, the combine), from ``torch.profiler`` over ``n`` calls
-    (inputs warm in L2: what it shows is the split between the kernels)."""
+    """Device microseconds a call of each decode kernel ``call`` launches,
+    from ``torch.profiler`` over ``n`` calls (inputs warm in L2)."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -71,9 +75,60 @@ def _kernel_us(torch, call, n: int = 20) -> dict:
         if us is None:
             us = getattr(evt, "cuda_time_total", 0)
         if "paged_decode" in evt.key and us:
-            name = "combine" if "combine" in evt.key else "split"
-            out[name] = out.get(name, 0.0) + us / n
+            out[evt.key] = out.get(evt.key, 0.0) + us / n
     return out
+
+
+def f32_outputs(torch, cs, pa, ops) -> dict:
+    """{label: float32 decode output} at phase 3's float32 decode inputs:
+    the block-table sweep, ``_decode_edge_cases`` (split and page edges,
+    ctx 0, every head dim) and the serving rows, from one seed."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cpu_gen = torch.Generator().manual_seed(0)
+    f32 = torch.float32
+    out = {}
+    for B, H, K, hd, page, MP in [(3, 8, 2, 64, 16, 5), (2, 4, 4, 128, 32, 4),
+                                  (1, 8, 1, 64, 8, 7), (4, 2, 2, 32, 16, 3),
+                                  (8, 32, 8, 128, 128, 16)]:
+        P = B * MP + 3
+        q = torch.randn(B, H, hd, generator=gen, device="cuda")
+        kp = torch.randn(P, page, K, hd, generator=gen, device="cuda")
+        vp = torch.randn(P, page, K, hd, generator=gen, device="cuda")
+        bt = torch.randperm(P, generator=cpu_gen)[:B * MP].reshape(
+            B, MP).int().cuda()
+        choices = [1, page, page + 1, MP * page]
+        cl = torch.tensor([choices[i % 4] for i in range(B)],
+                          dtype=torch.int32, device="cuda")
+        out[f"table B{B} H{H} K{K} hd{hd} page{page} MP{MP}"] = \
+            pa.paged_decode_attention(q, kp, vp, bt, cl).cpu()
+    for label, q, kp, vp, bt, cl in cs._decode_edge_cases(torch, f32, gen):
+        out[f"edge {label}"] = pa.paged_decode_attention(q, kp, vp, bt,
+                                                         cl).cpu()
+    ctx = torch.randint(1, 2049, (8,), generator=cpu_gen).int()
+    ctx[0], ctx[1] = 1, 2048
+    for B, C, H, K, hd, cl in [(8, 2048, 32, 8, 128, ctx),
+                               (8, 2048, 32, 32, 112, ctx),
+                               (4, 8192, 32, 8, 128, [8192] * 4),
+                               (2, 32768, 32, 8, 128, [32768] * 2)]:
+        q = torch.randn(B, H, hd, generator=gen, device="cuda")
+        ck = torch.randn(B, C, K, hd, generator=gen, device="cuda")
+        cv = torch.randn(B, C, K, hd, generator=gen, device="cuda")
+        cl = torch.as_tensor(cl, dtype=torch.int32).cuda()
+        out[f"rows ({B},{C},{K},{hd}) H{H}"] = ops.decode_attention(
+            q, ck, cv, cl).cpu()
+    return out
+
+
+def f32_equal(paths) -> int:
+    """Whether the ``--f32-out`` files hold the same outputs bit for bit."""
+    import torch
+    runs = [torch.load(p) for p in paths]
+    bad = [k for k in runs[0] if any(
+        k not in r or not torch.equal(runs[0][k], r[k]) for r in runs[1:])]
+    print(json.dumps({"f32_equal": not bad and all(
+        set(r) == set(runs[0]) for r in runs), "files": list(paths),
+        "outputs": len(runs[0]), "differ": bad}), flush=True)
+    return 1 if bad else 0
 
 
 def main() -> int:
@@ -83,7 +138,11 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--waves", type=int, default=None,
                     help="waves of resident CTAs the decode grid fills")
+    ap.add_argument("--f32-out", default=None)
+    ap.add_argument("--f32-equal", nargs="+", default=None)
     args = ap.parse_args()
+    if args.f32_equal:
+        return f32_equal(args.f32_equal)
     sys.path.insert(0, str(ROOT))
     import torch
     if not torch.cuda.is_available():
@@ -102,6 +161,11 @@ def main() -> int:
         pa._sm_count = lambda index: args.waves * sm_count(index)
     cs.phase_card(torch)
     build.build_all()
+    if args.f32_out:
+        outs = f32_outputs(torch, cs, pa, ops)
+        torch.save(outs, args.f32_out)
+        cs.log(f"[kernel_compare {args.label}] {len(outs)} float32 decode "
+               f"outputs saved to {args.f32_out}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     ctx_2048 = torch.randint(1, 2049, (8,), generator=cpu_gen).int()

@@ -1,8 +1,21 @@
 """DTensor helpers of the port's sharded paths: placements of a spec,
 head split/merge on sharded fused dims, ``local_map`` regions over each
-rank's rows and heads, per-layer FSDP gathers, and the functional
-collectives used inside regions. Every helper passes a plain tensor
-through as it is, so the single-device paths never see a mesh."""
+rank's rows and heads, per-layer FSDP gathers, the functional collectives
+used inside regions, and the padding of a batch that does not divide the
+batch axes. Every helper passes a plain tensor through as it is, so the
+single-device paths never see a mesh.
+
+A batch of B rows sharded over n batch ranks that B does not divide is
+DTensor's uneven ``Shard``: rank r holds its chunk of ceil(B / n) rows or
+fewer, some ranks none. Most of DTensor's ops take such a layout, but a
+flatten of the batch with another dim (every ``x @ W`` on (B, S, d), a
+reshape into MoE rows) and ``local_map``'s outputs (whose global shape it
+infers from the local one) assume even chunks. So the model pads: each
+rank's chunk grows to ceil(B / n) rows with zero rows (``pad_rows``, no
+collective), every op then sees an even shard of n ceil(B / n) rows, and
+the outputs drop the pad rows again (``unpad_rows``). That is GSPMD's own
+layout for an uneven shard (the reference's), and no rank holds more
+than ceil(B / n) rows."""
 from __future__ import annotations
 
 import math
@@ -99,15 +112,120 @@ def blockwise(fn, x: torch.Tensor, dims=()) -> torch.Tensor:
                               stride=x.stride())
 
 
+def _batch_dims(t: torch.Tensor, dim: int) -> list:
+    """The mesh dims that shard dim ``dim`` of DTensor ``t``, all of them
+    batch axes, in mesh order; [] when another axis shards it too."""
+    names = t.device_mesh.mesh_dim_names
+    mds = [md for md, p in enumerate(t.placements) if p.is_shard(dim)]
+    return mds if all(names[md] in BATCH_AXES for md in mds) else []
+
+
+def _local_rows(n: int, t: torch.Tensor, mds) -> int:
+    """The rows of ``n`` that this rank holds along mesh dims ``mds``:
+    DTensor's chunks, ceil(rows / size) of what the dim before left."""
+    coord = t.device_mesh.get_coordinate()
+    for md in mds:
+        k = -(-n // t.device_mesh.size(md))
+        n = max(0, min(k, n - coord[md] * k))
+    return n
+
+
+def _with_rows(t: torch.Tensor, dim: int, local: torch.Tensor, rows: int
+               ) -> torch.Tensor:
+    """``local`` as this rank's block of a DTensor laid out as ``t``, whose
+    dim ``dim`` has ``rows`` rows (differentiable)."""
+    shape = list(t.shape)
+    shape[dim] = rows
+    stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def padded_rows(t: torch.Tensor, dim: int = 0) -> int:
+    """The rows that dim ``dim`` of ``t`` has once padded: n ceil(B / n)
+    when batch axes of n ranks shard it unevenly, else its B."""
+    B = t.shape[dim]
+    if not is_dtensor(t):
+        return B
+    n = math.prod(t.device_mesh.size(md) for md in _batch_dims(t, dim))
+    return -(-B // n) * n
+
+
+def pad_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``t`` with each rank's chunk of a batch dim that its batch axes do
+    not divide grown to ceil(B / n) rows by zero rows at the chunk's end
+    (a local pad, no collective): an even shard of n ceil(B / n) rows,
+    whose real rows are each rank's first. ``t`` itself when the batch
+    divides (or ``t`` is a plain tensor). Differentiable."""
+    rows = padded_rows(t, dim)
+    if rows == t.shape[dim]:
+        return t
+    local = t.to_local()
+    c = rows // math.prod(t.device_mesh.size(md)
+                          for md in _batch_dims(t, dim))
+    if local.shape[dim] < c:
+        pad = list(local.shape)
+        pad[dim] = c - local.shape[dim]
+        local = torch.cat([local, local.new_zeros(pad)], dim=dim)
+    return _with_rows(t, dim, local, rows)
+
+
+def unpad_rows(t: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """The inverse of ``pad_rows``: ``t`` (padded to more than ``n`` rows
+    along ``dim``) with each rank's pad rows dropped (a local view), as a
+    DTensor of ``n`` rows in DTensor's uneven chunks. ``t`` itself when it
+    has ``n`` rows. Differentiable."""
+    if t.shape[dim] == n:
+        return t
+    local = t.to_local()
+    k = _local_rows(n, t, _batch_dims(t, dim))
+    return _with_rows(t, dim, local.narrow(dim, 0, k), n)
+
+
+def _flat_mesh(mesh, names):
+    """The mesh dims ``names`` of ``mesh`` as one flattened dim (their
+    ranks in row-major order, as nested even shards order their chunks).
+    Built with no dispatch mode active: a trace's fake tensors cannot
+    index the mesh's rank table."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return mesh[names]._flatten()
+
+
+def gather_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``t`` with dim ``dim``, sharded in even chunks over two or more
+    batch axes (pod and data), made whole on every rank by one all-gather
+    over those axes' ranks together, where DTensor's redistribute gathers
+    axis by axis and moves each step's result again in the next. ``t``
+    itself otherwise, and where autograd records (the gather has no
+    backward)."""
+    mds = _batch_dims(t, dim) if is_dtensor(t) else []
+    if len(mds) < 2 or torch.is_grad_enabled() \
+            or t.shape[dim] % math.prod(t.device_mesh.size(md) for md in mds):
+        return t
+    mesh = t.device_mesh
+    ops = torch.ops._c10d_functional
+    flat = _flat_mesh(mesh, tuple(mesh.mesh_dim_names[md] for md in mds))
+    g = ops.wait_tensor(ops.all_gather_into_tensor(
+        t.to_local().movedim(dim, 0).contiguous(), flat.size(),
+        flat.get_group().group_name)).movedim(0, dim)
+    return DTensor.from_local(
+        g, mesh, [Replicate() if md in mds else p
+                  for md, p in enumerate(t.placements)],
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
 def rows_heads(fn, args, layouts, out_layouts, heads=None):
     """``fn(*args)`` on DTensors as a ``local_map`` region over each rank's
     rows and heads. ``layouts[i]`` is (batch dim or None, head dim or None)
     of ``args[i]``; likewise ``out_layouts`` for the outputs. Rows shard
     over the batch axes when the batch divides them, and heads (experts,
     for a MoE) over ``model`` when every head count does (``heads``, if
-    given, is the count), else they are whole on every rank. A replicated
-    input that meets other ranks' rows or heads gets a pending-sum
-    gradient. Non-tensor arguments pass as they are. Differentiable."""
+    given, is the count), else they are whole on every rank (a caller
+    with an uneven batch pads it first, ``pad_rows``). A replicated input
+    that meets other ranks' rows or heads gets a pending-sum gradient.
+    Non-tensor arguments pass as they are. Differentiable."""
     mesh = next(a for a in args if is_dtensor(a)).device_mesh
     names = mesh.mesh_dim_names
     tensor = [isinstance(a, torch.Tensor) for a in args]

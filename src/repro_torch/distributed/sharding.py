@@ -141,18 +141,19 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
 def shard_tensor(full: torch.Tensor, spec: Spec, mesh):
     """``full`` (the same on every rank) as a DTensor: this rank keeps its
     block of each sharded dim (in mesh order, major to minor), with no
-    collective. Every sharded dim must divide its mesh axes, as the rules
-    above guarantee. On a 1x1 mesh the DTensor wraps ``full`` itself."""
+    collective. A dim that does not divide its mesh axes (a batch the
+    batch axes do not divide; the rules above demote every other) is cut
+    as DTensor cuts it: chunks of ceil(n / k), the last ones shorter or
+    empty. On a 1x1 mesh the DTensor wraps ``full`` itself."""
     pl = placements(spec, mesh)
     coord = mesh.get_coordinate()
     local = full
     for md, p in enumerate(pl):
         if p.is_shard():
             n, size = mesh.size(md), local.shape[p.dim]
-            if size % n:
-                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does "
-                                 f"not divide mesh dim {md} ({n})")
-            local = local.narrow(p.dim, coord[md] * (size // n), size // n)
+            k = -(-size // n)
+            start = min(coord[md] * k, size)
+            local = local.narrow(p.dim, start, min(k, size - start))
     return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
                               shape=full.shape, stride=full.stride())
 

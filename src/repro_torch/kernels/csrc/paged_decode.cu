@@ -49,22 +49,39 @@
 //     one); P's stores are fenced to the async proxy before a second named
 //     barrier. P keeps float32 precision as hi + lo (bf16 P alone missed
 //     the bf16 tolerance, scripts/kernel_variants.py).
+//   * bfloat16 under a block table whose pages are not a multiple of 8
+//     slots (`paged_attention.plan`'s "cp.async" copy): a 128-byte-swizzled
+//     TMA box is a 1024-byte atom of 8 rows that has to land 1024-aligned,
+//     so a box of fewer rows (a page of 1-7 slots, or gcd(page, 64) < 8)
+//     cannot fill part of an atom, and an unswizzled box does not help,
+//     since wgmma's core matrices are 8 rows of 16 bytes too. There the
+//     producer warp copies each key row itself, 16-byte cp.async chunks
+//     (each key's page looked up in the block table, columns past hd and
+//     keys past the range zero-filled) to the byte offsets TMA's swizzle
+//     would give, so the ring, the consumer and its wgmma descriptors stay
+//     as they are. The stage's full barrier counts one arrival a lane
+//     (cp.async.mbarrier.arrive.noinc: each lane's arrival fires when its
+//     copies have landed). What bounds it is still the bytes, but one warp
+//     issues every 16-byte copy (32-96 a lane a tile) where TMA took one
+//     instruction a box, so it runs further from the bound. It is a
+//     separate instance of the kernel (CPA), so pages of a multiple of 8
+//     slots run the TMA instance, unchanged.
 //   * float32 stays on the CUDA cores, exact (no TF32): scores are one
 //     (key, head group) a thread, the softmax one warp a head, P V one column
 //     pair a thread over a slice of the tile's keys. K rows are padded by
 //     16 bytes, so the thread-per-key 16-byte reads hit no bank twice.
 //   * the splits' float32 partials (m, l, acc) are merged by log-sum-exp in
-//     split order. bf16: by the last CTA of each (row, kv head) to finish,
-//     elected by an atomic ticket on a counter that it puts back to zero
-//     (one kernel a call: the second kernel it replaced cost 5-7 us a call
-//     at the serving shapes, PERF.md); a call of one split writes its
-//     output directly. float32: a second kernel on the same stream. The
-//     ticket only elects the merger; the merge order is fixed, so results
-//     are the same run to run.
+//     split order by the last CTA of each (row, kv head) to finish, elected
+//     by an atomic ticket on a counter that it puts back to zero
+//     (`merge_if_last`, both dtypes; one kernel a call: a second merge
+//     kernel cost 5-7 us a call at the serving shapes, PERF.md); a call of
+//     one split writes its output directly. The ticket only elects the
+//     merger; the merge order is fixed, so results are the same run to run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -103,6 +120,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+// 16 bytes global -> shared address `dst`; zero-filled when !pred
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0) : "memory");
+}
+// an arrival on `bar` once every cp.async this thread has issued has landed;
+// .noinc: the arrival is one of the barrier's expected count
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -139,6 +166,65 @@ struct Cfg {
   static_assert(sizeof(float) * NKG * MAXG * HD <= KV_BYTES, "alias");
 };
 
+// The last CTA of a (row, kv head) to finish merges its splits' float32
+// partials by log-sum-exp, in split order (a split with l = 0, past the
+// context, weighs nothing), into `out` (the row and kv head's G x HD).
+// `cnt` counts the (row, kv head)'s finished splits: each CTA fences its
+// partial and takes a ticket; the one that takes the last merges
+// and puts the count back to 0 for the next call on the stream. Every
+// split's (m, l) is first staged in shared memory (`ws`: (2 n_split + 1) G
+// floats over the K/V tiles, free by then) by loads that do not wait on one
+// another, so the merge costs a few L2 round trips, not one a split. 128
+// threads (the float32 CTA, or the bf16 consumer warpgroup), named
+// barrier 1.
+template <typename T, int HD>
+__device__ void merge_if_last(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                              const float* __restrict__ part_acc, T* __restrict__ out,
+                              int* __restrict__ cnt, int* flag_s, float* ws, size_t base,
+                              int G, int n_split) {
+  const int tid = threadIdx.x;
+  __threadfence();                      // this CTA's partial, before its ticket
+  named_sync(1, NTHREADS);
+  if (tid == 0) *flag_s = atomicAdd(cnt, 1) == n_split - 1;
+  named_sync(1, NTHREADS);
+  if (!*flag_s) return;
+  __threadfence();                      // the other CTAs' partials, after the tickets
+  const int n = n_split * G;
+  float* w_s = ws;                      // [n_split][G]: m, then the weight
+  float* l_s = ws + n;                  // [n_split][G]
+  float* inv_s = ws + 2 * n;            // [G]
+  for (int i = tid; i < n; i += NTHREADS) {
+    const float l = __ldcg(part_l + base + i);
+    l_s[i] = l;
+    w_s[i] = l > 0.f ? __ldcg(part_m + base + i) : NEG_INF;
+  }
+  named_sync(1, NTHREADS);
+  if (tid < G) {
+    float M = NEG_INF;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, w_s[s * G + tid]);
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float l = l_s[s * G + tid];
+      const float w = l > 0.f ? expf(w_s[s * G + tid] - M) : 0.f;
+      w_s[s * G + tid] = w;
+      L += l * w;
+    }
+    inv_s[tid] = 1.f / fmaxf(L, 1e-30f);
+  }
+  named_sync(1, NTHREADS);
+  for (int idx = tid; idx < G * HD; idx += NTHREADS) {
+    const int g = idx / HD;
+    float a = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      const float w = w_s[s * G + g];
+      if (w > 0.f) a += w * __ldcg(part_acc + (base + s * G) * HD + idx);
+    }
+    out[idx] = from_f<T>(a * inv_s[g]);
+  }
+  if (tid == 0) *cnt = 0;
+}
+
 // float32 (CUDA cores). shared memory: K[2][TK][KROW] | V[2][TK][HD] |
 // q[G][HD] f32 | s[G][TK] f32
 //                | m, l, alpha [MAXG] f32 | pages [npg] int
@@ -153,9 +239,10 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const T* __restrict__ vp, const int* __restrict__ bt,
-                          const int* __restrict__ cl, float* __restrict__ part_m,
-                          float* __restrict__ part_l, float* __restrict__ part_acc,
-                          int H, int K, int page, int MP, int split, float scale,
+                          const int* __restrict__ cl, T* __restrict__ o,
+                          float* __restrict__ part_m, float* __restrict__ part_l,
+                          float* __restrict__ part_acc, int* __restrict__ cnt, int H,
+                          int K, int page, int MP, int split, float scale,
                           float softcap) {
   using C = Cfg<T, HD>;
   constexpr int TK = C::TK, EPC = C::EPC, KROW = C::KROW, CPR = C::CPR;
@@ -179,13 +266,24 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = tid >> 5;
   const size_t pbase = (((size_t)b * K + kh) * n_split + sp) * G;
 
+  T* out = o + ((size_t)b * H + kh * G) * HD;
+  cnt += (size_t)b * K + kh;
+  int* flag_s = reinterpret_cast<int*>(alpha_s);      // after the loop
+  const size_t base = ((size_t)b * K + kh) * n_split * G;
+
   const int ctx = max(0, min(cl[b], MP * page));
   const int t0 = sp * split;
-  if (t0 >= ctx) {                      // neutral partial
+  if (t0 >= ctx) {                      // zeros (ctx 0), or a neutral partial
+    if (n_split == 1) {
+      for (int i = tid; i < G * HD; i += NTHREADS) out[i] = from_f<T>(0.f);
+      return;
+    }
     if (tid < G) {
       part_m[pbase + tid] = NEG_INF;
       part_l[pbase + tid] = 0.f;
     }
+    merge_if_last<T, HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+                         reinterpret_cast<float*>(smem_raw), base, G, n_split);
     return;
   }
   const int t1 = min(t0 + split, ctx);
@@ -339,12 +437,17 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     float a = 0.f;
 #pragma unroll
     for (int k2 = 0; k2 < C::NKG; ++k2) a += red[k2 * G * HD + idx];
-    part_acc[pbase * HD + idx] = a;
+    // one split: the merge's arithmetic with its one weight, exp(0) = 1
+    if (n_split == 1) out[idx] = from_f<T>(a * (1.f / fmaxf(l_s[idx / HD], 1e-30f)));
+    else part_acc[pbase * HD + idx] = a;
   }
+  if (n_split == 1) return;
   if (tid < G) {
     part_m[pbase + tid] = m_s[tid];
     part_l[pbase + tid] = l_s[tid];
   }
+  merge_if_last<T, HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+                       reinterpret_cast<float*>(smem_raw), base, G, n_split);
 }
 
 // --------------------------------------------------------------------------
@@ -371,64 +474,10 @@ struct DecCfg {
   }
 };
 
-// The last CTA of a (row, kv head) to finish merges its splits' float32
-// partials by log-sum-exp, in split order, with the combine kernel's
-// arithmetic. `cnt` counts the (row, kv head)'s finished splits: each CTA
-// fences its partial and takes a ticket; the one that takes the last merges
-// and puts the count back to 0 for the next call on the stream. As in the
-// combine kernel, every split's (m, l) is first staged in shared memory
-// (`ws`: 2 n_split G floats, the K/V ring, free by then) by loads that do
-// not wait on one another, so the merge costs a few L2 round trips, not
-// one a split. The 128 consumer threads, named barrier 1.
-template <int HD>
-__device__ void merge_if_last(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                              const float* __restrict__ part_acc, bf16* __restrict__ out,
-                              int* __restrict__ cnt, int* flag_s, float* ws, size_t base,
-                              int G, int n_split) {
-  const int tid = threadIdx.x;
-  __threadfence();                      // this CTA's partial, before its ticket
-  named_sync(1, NTHREADS);
-  if (tid == 0) *flag_s = atomicAdd(cnt, 1) == n_split - 1;
-  named_sync(1, NTHREADS);
-  if (!*flag_s) return;
-  __threadfence();                      // the other CTAs' partials, after the tickets
-  const int n = n_split * G;
-  float* w_s = ws;                      // [n_split][G]: m, then the weight
-  float* l_s = ws + n;                  // [n_split][G]
-  float* inv_s = ws + 2 * n;            // [G]
-  for (int i = tid; i < n; i += NTHREADS) {
-    const float l = __ldcg(part_l + base + i);
-    l_s[i] = l;
-    w_s[i] = l > 0.f ? __ldcg(part_m + base + i) : NEG_INF;
-  }
-  named_sync(1, NTHREADS);
-  if (tid < G) {
-    float M = NEG_INF;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, w_s[s * G + tid]);
-    float L = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float l = l_s[s * G + tid];
-      const float w = l > 0.f ? expf(w_s[s * G + tid] - M) : 0.f;
-      w_s[s * G + tid] = w;
-      L += l * w;
-    }
-    inv_s[tid] = 1.f / fmaxf(L, 1e-30f);
-  }
-  named_sync(1, NTHREADS);
-  for (int idx = tid; idx < G * HD; idx += NTHREADS) {
-    const int g = idx / HD;
-    float a = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < n_split; ++s) {
-      const float w = w_s[s * G + g];
-      if (w > 0.f) a += w * __ldcg(part_acc + (base + s * G) * HD + idx);
-    }
-    out[idx] = __float2bfloat16(a * inv_s[g]);
-  }
-  if (tid == 0) *cnt = 0;
-}
-
-template <int HD, int GB>
+// CPA: the producer copies K and V by cp.async (pages not a multiple of 8
+// slots; kp and vp are read, the tensor maps are not), else by TMA (the
+// tensor maps; kp and vp are not read)
+template <int HD, int GB, bool CPA>
 __global__ void __launch_bounds__(DecCfg<HD, GB>::NT, 2)
 paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
@@ -437,7 +486,8 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
                          float* __restrict__ part_m, float* __restrict__ part_l,
                          float* __restrict__ part_acc, int* __restrict__ cnt, int H, int K,
                          int page, int MP, int split, int box, int stages, float scale,
-                         float softcap) {
+                         float softcap, const bf16* __restrict__ kp,
+                         const bf16* __restrict__ vp) {
   using C = DecCfg<HD, GB>;
   constexpr int TK = C::TK, NB = C::NB, NS = C::NS, NO = C::NO;
   constexpr int SJ = NS / 8, OJ = NO / 8;           // 8-column blocks of S^T, O^T
@@ -471,7 +521,7 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       part_m[pbase + tid] = NEG_INF;
       part_l[pbase + tid] = 0.f;
     }
-    merge_if_last<HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+    merge_if_last<bf16, HD>(part_m, part_l, part_acc, out, cnt, flag_s,
                       reinterpret_cast<float*>(KVs), base, G, n_split);
     return;
   }
@@ -481,7 +531,8 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   const uint32_t full = smem_u32(bars), empty = full + 8 * stages;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(full + 8 * s, 1);
+      // TMA: one arrival (with the stage's bytes); cp.async: one a lane
+      mbar_init(full + 8 * s, CPA ? 32 : 1);
       mbar_init(empty + 8 * s, NWARPS);
     }
     mbar_init_fence();
@@ -492,8 +543,47 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   // diverges across the role branch, so the consumers' wgmma is never in
   // divergent code
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  if (warp == NWARPS && CPA) {
+    // ---- producer by cp.async: one warp, 16-byte chunks of the tile's key
+    //      rows (hd in NB boxes of 64 columns, 8 chunks a box row, zero
+    //      past hd and past the range), to the bytes TMA's 128-byte swizzle
+    //      would write ----
+    constexpr int CPR = NB * 8;                 // chunks a key row of a stage
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % stages;
+      mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+      // the consumers' wgmma reads of this stage (async proxy), which they
+      // retired before their arrivals, ordered before this lane's writes
+      fence_proxy_async();
+      // the cache rows (page * slots + slot) of the tile's keys lane and
+      // lane + 32, -1 past the range; each chunk takes its key's by shuffle
+      int ri[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + it * TK + lane + 32 * h;
+        ri[h] = -1;
+        if (t < t1) ri[h] = bt[(size_t)b * MP + t / page] * page + t % page;
+      }
+      const uint32_t kb = smem_u32(KVs) + (uint32_t)s * 2 * C::KV_BYTES;
+#pragma unroll 4
+      for (int i = lane; i < TK * CPR; i += 32) {  // 2 CPR chunks a lane
+        const int r = i / CPR, c = i % CPR;      // key of the tile, chunk of its row
+        const int r0v = __shfl_sync(0xffffffffu, ri[0], r & 31);
+        const int r1v = __shfl_sync(0xffffffffu, ri[1], r & 31);
+        const int row = r < 32 ? r0v : r1v;
+        const bool ok = row >= 0 && c * 8 < HD;
+        const size_t off = ok ? ((size_t)row * K + kh) * HD + c * 8 : 0;
+        const uint32_t dst = kb + (c >> 3) * C::BOX + sw128_offset(r, c & 7);
+        cp_async16_s(dst, kp + off, ok);
+        cp_async16_s(dst + C::KV_BYTES, vp + off, ok);
+      }
+      cp_async_arrive(full + 8 * s);
+    }
+    cp_async_wait<0>();                         // none in flight at exit
+    return;
+  }
   if (warp == NWARPS) {
-    // ---- producer: one warp, a lane a box of the tile ----
+    // ---- producer by TMA: one warp, a lane a box of the tile ----
     const int nbox = TK / box;
     for (int it = 0; it < ntiles; ++it) {
       const int s = it % stages;
@@ -566,6 +656,13 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
 
     // ---- S^T = K Q^T: A the K tile, B Q^T, both K-major ----
     mbar_wait(full + 8 * s, (it / stages) & 1);
+    // cp.async writes the stage through the generic proxy and wgmma reads
+    // it through the async proxy. The barrier's phase completes only when
+    // every lane's copies have landed, and this thread's wait observes it;
+    // the proxy fence, after the wait and before the first wgmma of the
+    // tile, orders those observed writes before this thread's async-proxy
+    // reads. Each consumer thread fences, so every wgmma issuer is covered.
+    if (CPA) fence_proxy_async();
     wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
@@ -702,54 +799,8 @@ paged_decode_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
   }
   if (n_split > 1)
-    merge_if_last<HD>(part_m, part_l, part_acc, out, cnt, flag_s,
+    merge_if_last<bf16, HD>(part_m, part_l, part_acc, out, cnt, flag_s,
                       reinterpret_cast<float*>(KVs), base, G, n_split);
-}
-
-// Merge the splits of one (row, kv head) by log-sum-exp; a split with l = 0
-// (past the context) is skipped, so a row with context 0 gives zeros. The
-// (m, l) of all splits are staged in shared memory first, so each output
-// element's loads of the partial sums are independent of one another.
-template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_combine_kernel(const float* __restrict__ part_m,
-                            const float* __restrict__ part_l,
-                            const float* __restrict__ part_acc, T* __restrict__ o,
-                            int H, int K, int n_split) {
-  extern __shared__ float comb_s[];     // w [n_split][G] | inv [G]
-  const int bk = blockIdx.x;
-  const int b = bk / K, kh = bk % K;
-  const int G = H / K;
-  const int tid = threadIdx.x;
-  const size_t base = (size_t)bk * n_split * G;
-  float* w_s = comb_s;
-  float* inv_s = comb_s + n_split * G;
-  for (int i = tid; i < n_split * G; i += NTHREADS)
-    w_s[i] = part_l[base + i] > 0.f ? part_m[base + i] : NEG_INF;
-  __syncthreads();
-  if (tid < G) {
-    float M = NEG_INF;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, w_s[s * G + tid]);
-    float L = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float l = part_l[base + s * G + tid];
-      const float w = l > 0.f ? expf(w_s[s * G + tid] - M) : 0.f;
-      w_s[s * G + tid] = w;
-      L += l * w;
-    }
-    inv_s[tid] = 1.f / fmaxf(L, 1e-30f);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * HD; idx += NTHREADS) {
-    const int g = idx / HD;
-    float a = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < n_split; ++s) {
-      const float w = w_s[s * G + g];
-      if (w > 0.f) a += w * part_acc[(base + s * G) * HD + idx];
-    }
-    o[((size_t)b * H + kh * G) * HD + idx] = from_f<T>(a * inv_s[g]);
-  }
 }
 
 template <typename Kern>
@@ -800,45 +851,52 @@ template <int HD>
 int launch_f32(const Args& a) {
   const int G = a.H / a.K;
   const int npg = a.split / a.page + 2;
+  const size_t smem = smem_bytes<float, HD>(G, npg);
+  if ((a.n_split > 1 && (a.part == nullptr || a.cnt == nullptr))
+      // the merge stages (m, l) of every split over the K/V tiles
+      || (size_t)(2 * a.n_split + 1) * G * 4 > Cfg<float, HD>::KV_BYTES)
+    return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)a.B * a.K * a.n_split * G;
   float* pm = static_cast<float*>(a.part);
   float* pl = pm + n;
   float* pa = pl + n;
   auto kern = paged_decode_split_kernel<float, HD>;
   static size_t smem_set = 0;
-  if (int e = set_smem(kern, smem_bytes<float, HD>(G, npg), smem_set)) return e;
-  kern<<<dim3(a.n_split, a.K, a.B), NTHREADS, smem_bytes<float, HD>(G, npg), a.stream>>>(
+  if (int e = set_smem(kern, smem, smem_set)) return e;
+  kern<<<dim3(a.n_split, a.K, a.B), NTHREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.kp),
       static_cast<const float*>(a.vp), static_cast<const int*>(a.bt),
-      static_cast<const int*>(a.cl), pm, pl, pa, a.H, a.K, a.page, a.MP, a.split,
-      1.f / sqrtf((float)HD), a.softcap);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_combine_kernel<float, HD>
-      <<<a.B * a.K, NTHREADS, sizeof(float) * (a.n_split + 1) * G, a.stream>>>(
-          pm, pl, pa, static_cast<float*>(a.o), a.H, a.K, a.n_split);
+      static_cast<const int*>(a.cl), static_cast<float*>(a.o), pm, pl, pa, a.cnt, a.H,
+      a.K, a.page, a.MP, a.split, 1.f / sqrtf((float)HD), a.softcap);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int GB>
-int launch_bf16(const Args& a) {
+template <int HD, int GB, bool CPA>
+int launch_bf16_as(const Args& a) {
   using C = DecCfg<HD, GB>;
-  // a tile is whole boxes; under a block table a box stays inside a page
-  if (a.stages < 2 || a.stages > 8 || a.box < 8 || C::TK % a.box
-      || (a.bt != nullptr && a.MP > 1 && a.page % a.box)
+  // TMA: a tile is whole boxes, and under a block table a box stays inside
+  // a page; cp.async (box 0) reads pages under a block table
+  if (a.stages < 2 || a.stages > 8
+      || (!CPA && (a.box < 8 || C::TK % a.box || (a.bt != nullptr && a.MP > 1 && a.page % a.box)))
+      || (CPA && a.bt == nullptr)
       || (a.n_split > 1 && (a.part == nullptr || a.cnt == nullptr))
       // the merge stages (m, l) of every split in the K/V ring
       || (size_t)(2 * a.n_split + 1) * (a.H / a.K) * 4 > (size_t)a.stages * 2 * C::KV_BYTES)
     return (int)cudaErrorInvalidValue;
-  auto kern = paged_decode_bf16_kernel<HD, GB>;
+  auto kern = paged_decode_bf16_kernel<HD, GB, CPA>;
   static size_t smem_set = 0;
   const size_t smem = C::bytes(a.stages);
   if (int e = set_smem(kern, smem, smem_set)) return e;
   CUtensorMap tk, tv;
-  // pages (P, page, K, hd) under a table, else rows (B, C = page, K, hd)
-  const int S = a.page, N = a.bt != nullptr ? a.P : a.B;
-  if (int e = cached_map(&tk, a.kp, HD, a.K, S, N, a.box)) return e;
-  if (int e = cached_map(&tv, a.vp, HD, a.K, S, N, a.box)) return e;
+  if (!CPA) {
+    // pages (P, page, K, hd) under a table, else rows (B, C = page, K, hd)
+    const int S = a.page, N = a.bt != nullptr ? a.P : a.B;
+    if (int e = cached_map(&tk, a.kp, HD, a.K, S, N, a.box)) return e;
+    if (int e = cached_map(&tv, a.vp, HD, a.K, S, N, a.box)) return e;
+  } else {
+    memset(&tk, 0, sizeof(tk));
+    memset(&tv, 0, sizeof(tv));
+  }
   const size_t n = (size_t)a.B * a.K * a.n_split * (a.H / a.K);
   float* pm = static_cast<float*>(a.part);
   float* pl = pm + n;
@@ -846,8 +904,14 @@ int launch_bf16(const Args& a) {
   kern<<<dim3(a.n_split, a.K, a.B), C::NT, smem, a.stream>>>(
       tk, tv, static_cast<const bf16*>(a.q), static_cast<const int*>(a.bt),
       static_cast<const int*>(a.cl), static_cast<bf16*>(a.o), pm, pl, pa, a.cnt, a.H, a.K,
-      a.page, a.MP, a.split, a.box, a.stages, 1.f / sqrtf((float)HD), a.softcap);
+      a.page, a.MP, a.split, a.box, a.stages, 1.f / sqrtf((float)HD), a.softcap,
+      static_cast<const bf16*>(a.kp), static_cast<const bf16*>(a.vp));
   return (int)cudaGetLastError();
+}
+
+template <int HD, int GB>
+int launch_bf16(const Args& a) {
+  return a.box == 0 ? launch_bf16_as<HD, GB, true>(a) : launch_bf16_as<HD, GB, false>(a);
 }
 
 template <int HD>
@@ -863,17 +927,17 @@ int launch(const Args& a, int dtype) {
 
 // dtype: 0 float32, 1 bfloat16. bt null: contiguous rows (B, page, K, hd),
 // MP = 1; else pages (P, page, K, hd) under bt (B, MP). part: float32
-// scratch of B*K*n_split*G*(hd + 2) values (unused by a bf16 call of one
-// split). cnt: B*K int32 split counters of the bf16 kernel, zero before the
-// call and left zero after it (unused by float32 and by one split); calls
-// that share it must be ordered (one stream). split: keys a CTA, a multiple
-// of 64 with split * n_split >= MP * page > split * (n_split - 1). stages
-// (2-8) and box (the TMA box's rows: 8-64, dividing 64, and the page when
-// MP > 1) are the bf16 kernel's (`paged_attention.plan`); float32 ignores
-// them. softcap <= 0 means "none". Launches the split kernel on `stream`,
-// and for float32 the combine kernel after it; returns the CUDA error code
-// (0 on success), or 1001 when the driver has no cuTensorMapEncodeTiled,
-// 1002 when it refuses a tensor map.
+// scratch of B*K*n_split*G*(hd + 2) values (unused by a call of one split).
+// cnt: B*K int32 split counters, zero before the call and left zero after
+// it (unused by one split); calls that share it must be ordered (one
+// stream). split: keys a CTA, a multiple of 64 with split * n_split >=
+// MP * page > split * (n_split - 1). stages (2-8) and box are the bf16
+// kernel's (`paged_attention.plan`); float32 ignores them. box: the TMA
+// box's rows (8-64, dividing 64, and the page when MP > 1), or 0 for the
+// cp.async copy (pages under bt of any size). softcap <= 0 means "none".
+// Launches one kernel on `stream`; returns the CUDA error code (0 on
+// success), or 1001 when the driver has no cuTensorMapEncodeTiled, 1002
+// when it refuses a tensor map.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* bt, const void* cl, void* o, void* part,
                             void* cnt, int B, int H, int K, int hd, int page, int MP, int P,

@@ -5,13 +5,12 @@ raises; a CPU tensor takes the plain version in ``ref.py``; any other
 device raises, and so does an input that requires grad while grad is
 enabled; a fake tensor (a ``FakeTensorMode`` trace) gets an empty
 output. ``paged_decode_attention.launches`` counts launches of the
-split-KV kernel. The bf16 kernel merges its splits itself (the last CTA
-of each row and kv head, elected through a counter the wrapper keeps per
-device and stream); a float32 launch is followed by one launch of the
-combine kernel, counted in ``paged_decode_attention.combine_launches``.
-``plan`` gives a call's split and the bf16 kernel's tiles, stages and
-shared memory; ``paged_decode_attention.plans`` logs the bf16 plans the
-launches used.
+split-KV kernel, one a call: it merges its splits itself (the last CTA of
+each row and kv head, elected through a counter the wrapper keeps per
+device and stream). ``plan`` gives a call's split and the bf16 kernel's
+copy ("tma" boxes, or "cp.async" for pages under a block table that are
+not a multiple of 8 slots), tiles, stages and shared memory;
+``paged_decode_attention.plans`` logs the bf16 plans the launches used.
 """
 from __future__ import annotations
 
@@ -62,9 +61,13 @@ def plan(batch: int, heads: int, kv_heads: int, hd: int, capacity: int,
     each of the batch x kv-head rows) fills one wave of those resident
     CTAs: as many splits as one wave holds, or one split when the rows
     alone fill it (two waves were slower or no faster at every serving
-    shape: PERF.md). A TMA box has ``box`` rows: the tile under
-    contiguous rows (or one page), else the largest power of two that
-    divides both the page and the tile, so that no box crosses a page."""
+    shape: PERF.md). The producer copies K and V by TMA (``copy`` "tma")
+    in boxes of ``box`` rows: the tile under contiguous rows (or one
+    page), else the largest power of two that divides both the page and
+    the tile, so that no box crosses a page. A 128-byte-swizzled box
+    holds whole 8-row atoms, so pages that are not a multiple of 8 slots
+    are copied a key row at a time by cp.async instead (``copy``
+    "cp.async", ``box`` None), into the same swizzled tiles."""
     if hd not in _HEAD_DIMS or heads % kv_heads or \
             heads // kv_heads > MAX_GROUP or capacity < 1 or page < 1:
         raise ValueError(f"paged decode plan: unsupported heads {heads} / "
@@ -82,7 +85,10 @@ def plan(batch: int, heads: int, kv_heads: int, hd: int, capacity: int,
     split = -(-split // TILE) * TILE
     n_split = -(-capacity // split)
     box = TILE if page >= capacity else math.gcd(page, TILE)
-    return {"tile": TILE, "box": box, "stages": stages, "smem": smem,
+    copy = "tma" if box % 8 == 0 else "cp.async"
+    return {"tile": TILE, "copy": copy,
+            "box": box if copy == "tma" else None, "stages": stages,
+            "smem": smem,
             "threads": THREADS, "group": group(G), "ctas_per_sm": ctas,
             "split": split, "n_split": n_split, "grid": rows * n_split,
             "waves": rows * n_split / slots}
@@ -90,7 +96,7 @@ def plan(batch: int, heads: int, kv_heads: int, hd: int, capacity: int,
 
 # the wrapper's plans, by call shape (a decode step calls one shape a layer)
 _plan = functools.lru_cache(maxsize=None)(plan)
-# (device, stream) -> the bf16 kernel's split counters: zero between calls
+# (device, stream) -> the kernel's split counters: zero between calls
 # (the merging CTA puts its counter back), so calls on one stream share
 # them. Calls that share a buffer must run one after another: a CUDA graph
 # keeps the buffer of the stream it was captured on, and replayed beside
@@ -130,7 +136,7 @@ def _lib():
 def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             block_tables: Optional[torch.Tensor], context_lens: torch.Tensor,
             page: int, MP: int, softcap: Optional[float]) -> torch.Tensor:
-    """Launch the split-KV kernel (and its combine) on q's card. A null
+    """Launch the split-KV kernel on q's card. A null
     ``block_tables`` (MP = 1) reads row b's keys from contiguous rows
     (B, page, K, hd)."""
     B, H, hd = q.shape
@@ -149,12 +155,8 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     dev = q.device
     p = _plan(B, H, K, hd, MP * page, page, _sm_count(dev.index or 0))
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and p["box"] % 8:
-        raise ValueError(f"paged_decode_attention: bf16 pages of {page} "
-                         f"slots; the TMA kernel takes pages of a multiple "
-                         f"of 8 slots")
-    # the bf16 kernel reads q in 16-byte chunks and K/V by TMA from
-    # 16-byte aligned bases
+    # the bf16 kernel reads q in 16-byte chunks and K/V by TMA or
+    # cp.async from 16-byte aligned bases
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if bf16 and (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16:
@@ -166,23 +168,21 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     split, n_split = p["split"], p["n_split"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     part = cnt = None
-    if n_split > 1 or not bf16:
+    if n_split > 1:
         part = torch.empty(B * K * n_split * (H // K) * (hd + 2),
                            dtype=torch.float32, device=dev)
-    if n_split > 1 and bf16:
         cnt = _counters(dev, stream, B * K)
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  None if bt is None else bt.data_ptr(), cl.data_ptr(),
                  out.data_ptr(), None if part is None else part.data_ptr(),
                  cnt, B, H, K, hd, page, MP,
-                 k_pages.shape[0], split, n_split, p["stages"], p["box"],
+                 k_pages.shape[0], split, n_split, p["stages"], p["box"] or 0,
                  _DTYPES[q.dtype], float(softcap or 0.0), stream)
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: "
                            f"{_ERRORS.get(err, f'CUDA error {err}')}")
     paged_decode_attention.launches += 1
-    paged_decode_attention.combine_launches += not bf16
     if bf16:
         key = (split, n_split, p["stages"], p["box"])
         plans = paged_decode_attention.plans
@@ -242,6 +242,5 @@ def decode_rows(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
 _ERRORS = {1001: "the driver has no cuTensorMapEncodeTiled",
            1002: "the driver refused a TMA tensor map"}
 paged_decode_attention.launches = 0
-paged_decode_attention.combine_launches = 0
 # (split, n_split, stages, box) -> bf16 launches
 paged_decode_attention.plans = {}

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..distributed.dtensor import (BATCH_AXES, all_reduce_max, is_dtensor,
-                                   placements_for, psum, rows_heads)
+                                   pad_rows, padded_rows, placements_for,
+                                   psum, rows_heads, unpad_rows)
 
 
 # Logical axis names. distributed/sharding.py maps these to mesh axes.
@@ -146,7 +147,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     (the same number as the reference's one-hot contraction, without a
     (N, V) one-hot). On a DTensor it is vocab-parallel (``_ce_sharded``)."""
     if is_dtensor(logits):
-        return _ce_sharded(logits, labels).mean()
+        # a sum over the ranks' rows (some may hold none: an uneven batch)
+        # over the token count
+        ce = _ce_sharded(logits, labels)
+        return ce.sum() / ce.numel()
     lse = torch.logsumexp(logits.float(), dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0].float()
     return (lse - ll).mean()
@@ -158,6 +162,12 @@ def _ce_sharded(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     and the sum of exponentials reduce over "model" and the label's logit
     comes from the rank that holds it, so no rank builds a (N, V) tensor
     wider than its own block."""
+    B = logits.shape[0]
+    if padded_rows(logits) != B:
+        # a batch the batch axes do not divide: each rank's rows padded
+        # (the labels come sharded as the logits), the pad rows' CE dropped
+        return unpad_rows(_ce_sharded(pad_rows(logits), pad_rows(labels)),
+                          B)
     mesh = logits.device_mesh
     names = mesh.mesh_dim_names
     mi = names.index("model") if "model" in names else None

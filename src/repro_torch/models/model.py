@@ -29,7 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.dtensor import gather_fsdp, is_dtensor, psum, rows_heads
+from ..distributed.dtensor import (gather_fsdp, is_dtensor, pad_rows, psum,
+                                   rows_heads, unpad_rows)
 from . import attention, mlp, moe, ssm, xlstm
 from .common import (BATCH_AXES, EMBED, LAYER, VOCAB, ParamMeta, ParamTree,
                      abstract_params, init_params, maybe_constrain, rms_norm)
@@ -310,6 +311,20 @@ def _whole_seq(x: torch.Tensor) -> torch.Tensor:
     return maybe_constrain(x, BATCH_AXES, None, None)
 
 
+def _padded(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A prefill's or training step's rows (tokens, frontend embeds) with
+    a batch that its batch axes do not divide padded to even chunks
+    (``dtensor.pad_rows``): every op of the stack then sees an even
+    shard, as under GSPMD's padding. ``t`` itself otherwise."""
+    return None if t is None else pad_rows(t)
+
+
+def _unpad_caches(caches: Cache, B: int) -> Cache:
+    """A prefill's caches (n, rows, ...) without their pad rows."""
+    return {kind: {n: unpad_rows(t, B, 1) for n, t in sub.items()}
+            for kind, sub in caches.items()}
+
+
 def _block_input(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
     """A block's normed input, its sequence whole."""
@@ -382,6 +397,18 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """The stack without the final norm and head: (hidden (B,F+S,d),
     caches of this call: each layer's K/V (n,B,F+S,K,hd), or its recurrent
     state at the end of the call). Arguments as ``prefill``."""
+    B = tokens.shape[0]
+    x, caches = _prefill_stack(cfg, params, tokens, positions, segment_ids,
+                               prefix_caches, prefix_len, prefix_positions,
+                               prefix_segment_ids, embeds)
+    return unpad_rows(x, B), _unpad_caches(caches, B)
+
+
+def _prefill_stack(cfg, params, tokens, positions, segment_ids,
+                   prefix_caches, prefix_len, prefix_positions,
+                   prefix_segment_ids, embeds) -> Tuple[torch.Tensor, Cache]:
+    """``prefill_hidden`` on rows padded to even chunks under a mesh
+    (``_padded``): the hidden states and caches keep the pad rows."""
     kinds = set(cfg.pattern())
     n_inv = num_shared_invocations(cfg)
     if segment_ids is not None:
@@ -403,10 +430,15 @@ def prefill_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 "chunk resume needs a pure-attention (kv prefix) or " \
                 "pure-recurrent (state snapshot) stack"
             assert segment_ids is None
-    x = embed(cfg, params, tokens, embeds)
+    x = embed(cfg, params, _padded(tokens), _padded(embeds))
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None]
+        # every rank computes RoPE's angles for all rows of ``positions``
+        # (a plain tensor): pad rows get one broadcast row rather than
+        # twice the rows' angles
+        if B == tokens.shape[0]:
+            positions = positions.expand(B, S)
     outs: Dict[str, list] = {k: [] for k in cfg.block_kinds()}
     shared = []
     akw = dict(prefix_len=prefix_len, prefix_positions=prefix_positions,
@@ -462,12 +494,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (B,C) instead. Recurrent chunked prefill (pure SSM/xLSTM stacks):
     ``prefix_caches`` carries the previous chunk's state snapshots (the
     shape this call returns), and the chunk continues the recurrence."""
-    x, caches = prefill_hidden(cfg, params, tokens, positions, segment_ids,
+    B = tokens.shape[0]
+    x, caches = _prefill_stack(cfg, params, tokens, positions, segment_ids,
                                prefix_caches, prefix_len, prefix_positions,
-                               prefix_segment_ids, embeds=embeds)
-    if last_only:
-        return logits_fn(cfg, params, x[:, -1]), caches
-    return logits_fn(cfg, params, x), caches
+                               prefix_segment_ids, embeds)
+    logits = logits_fn(cfg, params, x[:, -1] if last_only else x)
+    return unpad_rows(logits, B), _unpad_caches(caches, B)
 
 
 def _write_state(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
@@ -540,7 +572,8 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     shared-block invocation runs under ``torch.utils.checkpoint`` and is
     recomputed in the backward pass, as the reference checkpoints each
     layer. Differentiable: no cache is built and no kernel is called."""
-    x = embed(cfg, params, tokens, embeds)
+    rows = tokens.shape[0]
+    x = embed(cfg, params, _padded(tokens), _padded(embeds))
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -563,4 +596,4 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             scfg = _shared_cfg(cfg)
             x, _ = run(_attn_block_train, shared_params(params, cfg), scfg,
                        x, positions, scfg.num_kv_heads)
-    return logits_fn(cfg, params, _whole_seq(x)), aux
+    return unpad_rows(logits_fn(cfg, params, _whole_seq(x)), rows), aux

@@ -27,9 +27,15 @@ combine are ``local_map`` regions over each rank's rows: each ``model``
 rank scatters into its E / model experts (an assignment to another rank's
 expert drops locally), and the combine's ``psum`` over ``model`` is a
 functional all-reduce. A decode-sized call (``D = 1``, data and model
-axes above 1, no pod) contracts the d-sharded expert weights in place and
-all-reduces MB-sized partials over ``data`` instead of gathering the
-weights (``_expert_ffn_decode``).
+axes above 1, with or without a pod axis) contracts the d-sharded expert
+weights in place and all-reduces MB-sized partials over ``data`` instead
+of gathering the weights (``_expert_ffn_decode``).
+
+Under a batch that the batch axes do not divide, the model pads each
+rank's rows to ceil(B / n) (``dtensor.pad_rows``): a dispatch row is then
+a rank's block, pad rows included, which follow its real rows and so take
+no expert slot from them; its capacity counts the padded block, as a
+GShard group is a device's shard.
 """
 from __future__ import annotations
 
@@ -40,8 +46,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..distributed.dtensor import (all_gather_dim, all_reduce_sum, is_dtensor,
-                                   psum, rows_heads)
+from ..distributed.dtensor import (all_gather_dim, all_reduce_sum,
+                                   gather_rows, is_dtensor, psum, rows_heads)
 from .common import (BATCH_AXES, EMBED, EXPERT, MLP, NUL, ParamMeta, ParamTree,
                      active_mesh, data_shards, maybe_constrain)
 from .config import ModelConfig
@@ -133,11 +139,14 @@ def _swiglu_experts(p, buf):
 
 
 def _expert_ffn_decode(p, buf, mesh):
-    """The decode schedule (D = 1; data and model above 1, no pod): each
-    (data, model) rank contracts its d block of its experts' weights, the
+    """The decode schedule (D = 1; data and model above 1): each (data,
+    model) rank contracts its d block of its experts' weights, the
     partials all-reduce over ``data`` (MB-sized) and the d blocks of the
     output gather over ``data``; GSPMD's default would gather the weights
-    (GBs a layer for the 480B MoE)."""
+    (GBs a layer for the 480B MoE). A ``pod`` axis is pure data
+    parallelism: the weights and the call's tokens are the same in every
+    pod, so each pod runs the single-pod schedule on its own ranks, and
+    no collective crosses pods."""
     names = mesh.mesh_dim_names
     di = names.index("data")
 
@@ -182,6 +191,11 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     else:
         if D > 1:
             xf = maybe_constrain(xf, BATCH_AXES, None, None)
+        else:
+            # the tokens of one row, whole on every rank: one gather over
+            # pod and data together (the regions below would gather them
+            # axis by axis, twice)
+            xf = gather_rows(xf, 1)
         names = mesh.mesh_dim_names
         model_n = mesh.size(names.index("model"))
         ep = E % model_n == 0           # each model rank holds E / model_n
@@ -203,12 +217,15 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         buf = rows_heads(
             lambda a, e, s: _dispatch(a, e, s, k, E_loc, e0(), Cl),
             (xf, e_flat, pos_s), (rows,) * 3, (ebuf,), heads=E)
-        buf = maybe_constrain(buf, BATCH_AXES, "model", None, None)
+        # one row (D = 1): laid out within each pod, as on a single pod (a
+        # pod holds the same tokens and weights), so that no gather of it
+        # crosses pods
+        row_axes = BATCH_AXES if D > 1 else "data"
+        buf = maybe_constrain(buf, row_axes, "model", None, None)
         data_n = mesh.size(names.index("data")) if "data" in names else 1
         f = p["w_gate"].shape[-1]
         if D == 1 and ep and model_n > 1 and data_n > 1 \
-                and d % data_n == 0 and f % data_n == 0 \
-                and "pod" not in names:
+                and d % data_n == 0 and f % data_n == 0:
             out_buf = _expert_ffn_decode(p, buf, mesh)
         else:
             # each rank's rows through its experts' whole weights
@@ -217,7 +234,7 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                     {"w_gate": g, "w_up": u, "w_down": w}, b),
                 (buf, p["w_gate"], p["w_up"], p["w_down"]),
                 (ebuf,) + (experts,) * 3, (ebuf,), heads=E)
-        out_buf = maybe_constrain(out_buf, BATCH_AXES, "model", None, None)
+        out_buf = maybe_constrain(out_buf, row_axes, "model", None, None)
 
         def combine(b, e, s):
             yv = _combine(b, e, s, e0())

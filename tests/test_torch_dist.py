@@ -1,6 +1,8 @@
 """The port's sharded steps on a (2, 2) mesh of 4 CPU ``gloo`` ranks, held
 against the same steps in one process without a mesh, in float32: reduced
-qwen3 (train, prefill, decode), reduced zamba2 (decode and train: the
+qwen3 (train, prefill, decode; a prefill of 1 row, which the 2 data ranks
+do not divide, and one of 2 rows on a (pod 2, data 2, model 1) mesh of the
+same ranks), reduced zamba2 (decode and train: the
 chunked SSD as a region), reduced xlstm (train: the mLSTM chunks and the
 sLSTM scan as regions) and reduced
 phi3.5-MoE (prefill, decode, its expert-parallel ``local_map`` path against
@@ -36,7 +38,17 @@ CASES = [
     ("moe_prefill", "phi3.5-moe-42b-a6.6b", "prefill", 32, 2),
     ("moe_decode", "phi3.5-moe-42b-a6.6b", "decode", 64, 4),
     ("moe_train", "phi3.5-moe-42b-a6.6b", "train", 32, 4),
+    # batches the 2 data ranks do not divide: prefill and train pad each
+    # rank's rows (1 row: one real row and one pad row; 3 rows: a rank of
+    # 2 real rows, one of a real and a pad row); a decode keeps its cache
+    # rows whole on every rank
+    ("qwen3_prefill_batch1", "qwen3-8b", "prefill", 32, 1),
+    ("qwen3_train_batch3", "qwen3-8b", "train", 32, 3),
+    ("qwen3_decode_batch3", "qwen3-8b", "decode", 64, 3),
 ]
+# the same on a (pod 2, data 2, model 1) mesh built in the same spawn:
+# 2 rows over 4 batch ranks, two of which hold only pad rows
+POD_CASES = [("qwen3_prefill_pod_batch2", "qwen3-8b", "prefill", 32, 2)]
 LAUNCH = ["--arch", "qwen3-8b", "--reduced", "--steps", "2", "--batch", "4",
           "--seq", "32", "--device", "cpu"]
 
@@ -125,6 +137,9 @@ def _worker(rank: int, port: int, queue) -> None:
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))
         out = {name: _case(mesh, *spec) for name, *spec in CASES}
+        pod = init_device_mesh("cpu", (2, 2, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+        out.update({name: _case(pod, *spec) for name, *spec in POD_CASES})
         out["launch_2x2"] = _launch(LAUNCH + ["--data-axis", "2",
                                               "--model-axis", "2"])
         out["launch_1x1"] = _launch(LAUNCH)
@@ -165,7 +180,7 @@ def results():
     return got
 
 
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
+@pytest.mark.parametrize("name", [c[0] for c in CASES + POD_CASES])
 def test_sharded_step_equals_one_process(results, name):
     for rank, out in results.items():
         assert out[name] <= RTOL, (rank, out[name])

@@ -235,3 +235,84 @@ def test_merge_heads_makes_a_sharded_head_dim_whole_before_the_reshape():
     for sharded in out["seen"]:
         assert not any(sharded), out
     assert out["shape"] == [2, 512]
+
+
+# --------------------------------------------------------------------------- #
+# a batch that the batch axes do not divide, and MoE decode on a pod mesh
+# --------------------------------------------------------------------------- #
+_UNEVEN_SUBPROC = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.shapes import ShapeSpec
+world, meshes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+out = {}
+with dryrun.fake_world(world):
+    for shape, names, combos in meshes:
+        mesh = init_device_mesh("cpu", tuple(shape),
+                                mesh_dim_names=tuple(names))
+        for arch, kind, seq, batch in combos:
+            cfg = get_config(arch).reduced(d_model=256).with_(vocab_size=512)
+            rec = dryrun.run_one(arch, kind, False, verbose=False, mesh=mesh,
+                                 cfg=cfg,
+                                 shape=ShapeSpec(kind, kind, seq, batch))
+            out[f"{arch} {kind} {batch} {rec['mesh']}"] = rec
+print("RESULT" + json.dumps(out, default=str))
+"""
+POD = ((2, 4, 2), ("pod", "data", "model"))
+FLAT = ((8, 2), ("data", "model"))
+ONE_POD = ((4, 2), ("data", "model"))
+PREFILL = [("qwen3-8b", "prefill", 256, 4), ("qwen3-8b", "prefill", 256, 8)]
+ARCTIC_DECODE = ("arctic-480b", "decode", 512, 16)
+
+
+@pytest.fixture(scope="module")
+def uneven():
+    """Both fake worlds' records: 16 ranks, the (2, 4, 2) pod mesh and an
+    (8, 2) mesh; 8 ranks, the (4, 2) mesh that is one of the pods. The two
+    subprocesses run at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = [(16, [(*POD, PREFILL + [ARCTIC_DECODE]), (*FLAT, PREFILL)]),
+            (8, [(*ONE_POD, [ARCTIC_DECODE])])]
+    procs = [subprocess.Popen([sys.executable, "-c", _UNEVEN_SUBPROC,
+                               json.dumps(w), json.dumps(m)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=ROOT)
+             for w, m in runs]
+    out = {}
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=120)
+        assert p.returncode == 0, stderr[-3000:]
+        line = [ln for ln in stdout.splitlines()
+                if ln.startswith("RESULT")][0]
+        out.update(json.loads(line[len("RESULT"):]))
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["2x4x2", "8x2"])
+def test_prefill_of_a_batch_the_batch_ranks_do_not_divide(uneven, mesh):
+    """Reduced qwen3's prefill at a global batch of 4 over 8 batch ranks
+    (an (8, 2) mesh, and the (2, 4, 2) pod mesh) traces, and rank 0 holds
+    one row as at a batch of 8 (one row a rank): its argument and temp
+    bytes are no larger than the batch of 8's."""
+    four = uneven[f"qwen3-8b prefill 4 {mesh}"]
+    eight = uneven[f"qwen3-8b prefill 8 {mesh}"]
+    assert four["status"] == "ok", four.get("traceback")
+    assert eight["status"] == "ok", eight.get("traceback")
+    for k in ("argument", "temp"):
+        assert four["mem_bytes"][k] <= eight["mem_bytes"][k], (k, four,
+                                                               eight)
+
+
+def test_moe_decode_on_a_pod_mesh_gathers_no_more_than_one_pod(uneven):
+    """Reduced arctic-480b's decode (batch 16, 512 slots) on the (2, 4, 2)
+    pod mesh contracts its d-sharded experts inside each pod, as on the
+    (4, 2) mesh of one pod: its all-gather bytes a rank are no larger than
+    there, though each rank holds half as many rows."""
+    pod = uneven["arctic-480b decode 16 2x4x2"]
+    one = uneven["arctic-480b decode 16 4x2"]
+    assert pod["status"] == "ok" and one["status"] == "ok"
+    assert pod["collective_bytes"]["all-gather"] <= \
+        one["collective_bytes"]["all-gather"], (pod["collective_bytes"],
+                                                one["collective_bytes"])

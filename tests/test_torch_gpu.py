@@ -253,22 +253,6 @@ def test_wrappers_refuse_unsupported_inputs(card):
     with pytest.raises(TypeError):
         flash_attention(q.half()[..., :32], q.half()[..., :32],
                         q.half()[..., :32])
-    # bf16 pages of 4 slots: a TMA box under a page would be 4 rows, less
-    # than the 128-byte swizzle's 8-row atom (float32 takes them)
-    qd = torch.zeros(2, 4, 64, device="cuda")
-    kp = torch.zeros(9, 4, 2, 64, device="cuda")
-    bt = torch.arange(8, device="cuda", dtype=torch.int32).reshape(2, 4)
-    cl = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
-    paged_decode_attention(qd, kp, kp, bt, cl)
-    with pytest.raises(ValueError):
-        paged_decode_attention(qd.bfloat16(), kp.bfloat16(), kp.bfloat16(),
-                               bt, cl)
-
-
-def _combines(dtype) -> int:
-    """Combine launches a decode call adds: one a float32 call; the bf16
-    kernel merges its splits itself."""
-    return int(dtype == torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -300,8 +284,7 @@ def test_paged_decode_split_edges(card, dtype, hd, H, K):
     for ctx in ([0, split - 1, split, split + 1], [1, cap, 3, cap - 1],
                 [2 * split + 1, 2 * split - 1, split * (n_split - 1), 0]):
         cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-        n0 = (paged_decode_attention.launches,
-              paged_decode_attention.combine_launches)
+        n0 = paged_decode_attention.launches
         got = paged_decode_attention(q, kp, vp, bt, cl)
         _close(got, ref.paged_decode_attention(q, kp, vp, bt, cl), dtype)
         assert torch.equal(got, paged_decode_attention(q, kp, vp, bt, cl))
@@ -309,9 +292,7 @@ def test_paged_decode_split_edges(card, dtype, hd, H, K):
         _close(rows, ref.paged_decode_attention(
             q, ck.reshape(-1, 128, K, hd), cv.reshape(-1, 128, K, hd),
             ident, cl), dtype)
-        assert (paged_decode_attention.launches,
-                paged_decode_attention.combine_launches) == (
-                    n0[0] + 3, n0[1] + 3 * _combines(dtype))
+        assert paged_decode_attention.launches == n0 + 3
         for b, c in enumerate(ctx):
             if c == 0:
                 assert torch.count_nonzero(got[b]) == 0
@@ -321,23 +302,32 @@ def test_paged_decode_split_edges(card, dtype, hd, H, K):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,H,K,page", [
     (64, 16, 4, 8), (64, 16, 4, 16), (128, 16, 4, 8), (128, 16, 4, 16),
-    (160, 4, 4, 32), (160, 4, 4, 16)],
+    (160, 4, 4, 32), (160, 4, 4, 16), (64, 32, 4, 1), (64, 16, 4, 4),
+    (128, 16, 4, 12), (128, 16, 2, 20), (160, 4, 4, 36), (160, 16, 4, 12),
+    (128, 8, 8, 4)],
     ids=["hd64-G4-page8", "hd64-G4-page16", "hd128-G4-page8",
-         "hd128-G4-page16", "hd160-G1-page32", "hd160-G1-page16"])
+         "hd128-G4-page16", "hd160-G1-page32", "hd160-G1-page16",
+         "hd64-G8-page1", "hd64-G4-page4", "hd128-G4-page12",
+         "hd128-G8-page20", "hd160-G1-page36", "hd160-G4-page12",
+         "hd128-G1-page4"])
 def test_paged_decode_pages_under_a_tile(card, dtype, hd, H, K, page):
-    """Pages smaller than the bf16 kernel's 64-key tile (one TMA box a
-    page, all completing on the tile's barrier), and hd 160 (three
-    64-column boxes, the last half zero-filled) at G = 1: contexts on each
-    split edge +-1, inside a page, ctx 0 and full, against the plain
-    version and against contiguous rows; bit-equal on repeat. A softcap
-    on the last call."""
+    """Pages smaller than the bf16 kernel's 64-key tile: a multiple of 8
+    slots (one TMA box a page, all completing on the tile's barrier), or
+    not (1-36 slots: the cp.async copy, a key row at a time), and hd 160
+    (three 64-column boxes, the last half zero-filled) at G = 1 and 4:
+    contexts on each split edge +-1, inside a page, ctx 0 and full,
+    against the plain version and against contiguous rows; bit-equal on
+    repeat, one launch a call. A softcap on the last call."""
     from repro_torch.kernels.paged_attention import _sm_count, plan
     g = card
     B, MP = 4, 512 // page
     cap = page * MP
     p = plan(B, H, K, hd, cap, page, _sm_count(0))
     split, n_split = p["split"], p["n_split"]
-    assert p["box"] == min(page, 64)
+    if page % 8:
+        assert p["copy"] == "cp.async"
+    else:
+        assert p["copy"] == "tma" and p["box"] == min(page, 64)
     P = B * MP + 3
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
     q, kp, vp = rnd(B, H, hd), rnd(P, page, K, hd), rnd(P, page, K, hd)
@@ -353,17 +343,14 @@ def test_paged_decode_pages_under_a_tile(card, dtype, hd, H, K, page):
         cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
         soft = 20.0 if i + B >= len(edges) else None
         want = ref.paged_decode_attention(q, kp, vp, bt, cl, softcap=soft)
-        n0 = (paged_decode_attention.launches,
-              paged_decode_attention.combine_launches)
+        n0 = paged_decode_attention.launches
         got = paged_decode_attention(q, kp, vp, bt, cl, softcap=soft)
         _close(got, want, dtype)
         assert torch.equal(got, paged_decode_attention(q, kp, vp, bt, cl,
                                                        softcap=soft))
         _close(ops.decode_attention(q, rows_k, rows_v, cl, softcap=soft),
                want, dtype)
-        assert (paged_decode_attention.launches,
-                paged_decode_attention.combine_launches) == (
-                    n0[0] + 3, n0[1] + 3 * _combines(dtype))
+        assert paged_decode_attention.launches == n0 + 3
         for b, c in enumerate(ctx):
             if c == 0:
                 assert torch.count_nonzero(got[b]) == 0

@@ -6,10 +6,12 @@ on the CPU (no card or nvcc needed):
   that allows; wgmma's shapes (64-row tiles, N a multiple of 8 up to 256,
   contractions in steps of 16) for S^T = K Q^T and O^T = V^T P^T;
 * splits that are whole tiles and cover the capacity exactly once;
-* TMA boxes that never cross a page under a block table;
+* TMA boxes that never cross a page under a block table, and the cp.async
+  copy for pages that are not a multiple of 8 slots;
 * a grid of one whole wave of resident CTAs at the four serving shapes;
 * the library's build key covering the shared ``tma.cuh`` and
   ``wgmma.cuh``, and the kernel's shared-memory formula the plan repeats."""
+import math
 import re
 
 import pytest
@@ -84,12 +86,48 @@ def test_no_box_crosses_a_page(page):
                     assert t // page == (t + box - 1) // page, (page, t)
 
 
-def test_pages_not_a_multiple_of_8_give_boxes_under_8_rows():
-    """Pages that are not a multiple of 8 slots give boxes under 8 rows,
-    which a 128-byte-swizzled TMA box does not take: the plan says so, and
-    the bf16 wrapper raises on such a call (a card test)."""
-    for page in (1, 4, 12, 20):
-        assert pa.plan(2, 8, 2, 64, 4 * page, page)["box"] % 8
+@pytest.mark.parametrize("page", [1, 4, 12, 20])
+def test_pages_not_a_multiple_of_8_give_boxes_under_8_rows(page):
+    """Pages that are not a multiple of 8 slots would give TMA boxes under
+    8 rows, which a 128-byte-swizzled box (whole 8-row atoms) does not
+    take: the plan copies them by cp.async instead, with no box, and keeps
+    everything else of the kernel's plan (split, stages, shared memory)."""
+    for MP in (2, 7, 64):
+        cap = MP * page
+        p = pa.plan(2, 8, 2, 64, cap, page)
+        assert math.gcd(page, p["tile"]) % 8
+        assert p["copy"] == "cp.async" and p["box"] is None
+        q = pa.plan(2, 8, 2, 64, cap, 8 * page)       # the same, but TMA
+        assert q["copy"] == "tma"
+        assert {k: v for k, v in p.items() if k not in ("copy", "box")} \
+            == {k: v for k, v in q.items() if k not in ("copy", "box")}
+    # one page a row: the tile is one TMA box, at any page size
+    assert pa.plan(2, 8, 2, 64, page, page)["copy"] == "tma"
+
+
+def test_pages_of_a_multiple_of_8_keep_their_tma_boxes():
+    """Every page size that is a multiple of 8 slots keeps the TMA copy
+    with the boxes it had before the cp.async copy existed: the tile under
+    one page a row, else gcd(page, 64) rows."""
+    for page in range(8, 1025, 8):
+        for MP in (1, 2, 7):
+            p = pa.plan(4, 16, 4, 128, MP * page, page)
+            assert p["copy"] == "tma"
+            assert p["box"] == (64 if MP == 1 else math.gcd(page, 64))
+
+
+def test_cp_async_copy_arrives_once_a_lane():
+    """The cp.async instance's full barriers expect one arrival from each
+    of the producer warp's 32 lanes, which each make one a tile; the TMA
+    instance's expect one, with the tile's bytes. No combine kernel is
+    left: both dtypes merge their splits in the split kernel."""
+    src = (build.CSRC / "paged_decode.cu").read_text()
+    assert "mbar_init(full + 8 * s, CPA ? 32 : 1);" in src
+    assert src.count("cp_async_arrive(full + 8 * s);") == 1
+    assert src.count("mbar_expect_tx(full + 8 * s, 2 * C::KV_BYTES);") == 1
+    assert "combine_kernel" not in src
+    assert src.count("merge_if_last<T, HD>(") == 2          # float32
+    assert src.count("merge_if_last<bf16, HD>(") == 2
 
 
 @pytest.mark.parametrize("shape", SERVING, ids=["rings", "decode_32k",
