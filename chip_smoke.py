@@ -2,8 +2,10 @@
 kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE and mistral-nemo-12b
 (sliding-window ring caches) at full width through ``ServingEngine``, run
 phi3-vision's embedding-frontend prefill, train qwen3-8b at full width
-through ``repro_torch.training``, dry-run the production mesh on the host
-and run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh.
+through ``repro_torch.training``, dry-run the production mesh on the host,
+run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh, and
+serve opt-13b (the serving launcher's default model) at full width and
+depth, under KV pressure too.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -35,10 +37,11 @@ Phases (any failure raises and exits non-zero):
      at hd 128; zamba2: causal prefill (1, 1536, 32, 112), decode
      (8, 2048, 32, 112); mistral-nemo: causal prefill (1, 10240, 32, 128)
      under the 8192 window with G = 4, decode over four full 8192-slot
-     rings; phi3-vision: causal prefill (2, 1152, 32, 96)), and the
-     (8, 2048) decode row's heads and contexts in pages of 12 slots under
-     a shuffled block table (SDPA over the same keys gathered into rows,
-     the gather not timed); at those ten,
+     rings; phi3-vision: causal prefill (2, 1152, 32, 96); opt-13b:
+     packed prefill (1, 2048, 40, 128) and decode (8, 2048, 40, 128),
+     G = 1), and the (8, 2048) decode row's heads and contexts in pages
+     of 12 slots under a shuffled block table (SDPA over the same keys
+     gathered into rows, the gather not timed); at those twelve,
      time kernel, plain version and one library call (SDPA, bool mask,
      ``enable_gqa``), and each flash shape also under the other q tile,
      and log each decode shape's plan and the decode wrapper's host
@@ -65,14 +68,14 @@ Phases (any failure raises and exits non-zero):
      sampled streams, completion times, scheduler decisions and generator
      state of K=1 (reduced qwen3, the reference's pressure workload);
   6. KV migration and the fleet (``repro_torch.cluster``), sharing the
-     weights of phases 4 and 5:
+     weights of phases 4 (its first 12 layers in 6a-c) and 5:
      a. full width, bf16: a ~1500-token request prefilled on engine A,
         exported and injected into engine B; B's cache row equals A's
         bit for bit, the CRC holds, and B finishes the request;
      b. a unified 2-instance fleet (least-kvc router) at full width on
         the phase-4 workload: every request complete, conservation and
         ``check_fleet_invariants`` hold, both instances serve, decode
-        launches equal 36 x the engines' decode iterations;
+        launches equal 12 x the engines' decode iterations;
      c. the same pair disaggregated (prefill, decode): 12 migrations, no
         fallback, invariants hold;
      d. phase 5's setting on a 3-instance disaggregated fleet with a kill
@@ -134,10 +137,11 @@ Phases (any failure raises and exits non-zero):
         production (32, 8) mesh; qwen3-8b at all four shapes, zamba2-7b
         decode_32k, phi3.5-MoE prefill_32k and arctic-480b train_4k at
         full size, and on the multi-pod (2, 32, 8) mesh of 512 ranks
-        qwen3-8b prefill_32k (a batch of 32 over 64 batch ranks) and
-        arctic-480b decode_32k, must all trace; prints bytes a card, fits-80GB, the
-        roofline terms and the bottleneck; then the two shapes of 12b on a
-        fake (1, 1) mesh, for their per-card totals;
+        qwen3-8b and phi3.5-MoE prefill_32k (a batch of 32 over 64 batch
+        ranks) and arctic-480b decode_32k, must all trace; prints bytes a
+        card, fits-80GB, the roofline terms and the bottleneck; then the
+        two shapes of 12b on a fake (1, 1) mesh, for their per-card
+        totals;
      b. qwen3-8b at full width and depth, bf16, seeded, through
         ``build_step`` on a real 1-rank NCCL mesh (1, 1): prefill_32k at
         batch 1 and decode_32k at batch 8 (8 rows of 32768 slots, 38.65 GB
@@ -145,11 +149,27 @@ Phases (any failure raises and exits non-zero):
         each layer's kernel launched once a step, the median step ms of
         three and peak memory beside
         the dry-run's total (decode within 15%).
+ 13. opt-13b, the reference serving launcher's default model:
+     a. at its published widths and depth (40 layers, d 5120, MHA 40 heads
+        of 128, d_ff 20480, vocab 50272, 34.6 GB), bf16, seeded random
+        weights, on phase 4's settings and workload with phase 4's gates
+        (chunk waves and megastep windows, flash a multiple of 40, decode
+        40 x the decode iterations, no blocking sync); tokens/s, peak
+        memory, then the profiled run as phase 4's;
+     b. the same weights under KV pressure: 16 greedy requests (128-1024
+        prompt, 96-384 output tokens) in 4096 tokens of KVC with a
+        predictor of accuracy 0.5: at least two host-swap captures and a
+        restore seated bit for bit from a checksummed image, lent KVC and
+        recompute, every request completed once, nothing left held; each
+        capture's and restore's image size and seconds;
+     c. at full width cut to 4 layers, float32, TF32 off: phase 5's greedy
+        parity, then 13b's workload under 13b's pressure and without it:
+        the greedy streams equal token for token.
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
-7a, 8a and 9a and the sharded steps of 12b; the top-level times are the
-zamba2 shapes, every timed shape under ``shapes``); the last line is
-``{"ok": true, "device": {...}}``.
+7a, 8a, 9a, 13a and 13b and the sharded steps of 12b; the top-level
+times are the zamba2 shapes, every timed shape under ``shapes``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -185,6 +205,8 @@ LONG = 32768
 # a page that is not a multiple of 8 slots: the bf16 decode kernel copies
 # such pages by cp.async (``paged_attention.plan``'s "cp.async" copy)
 SMALL_PAGE = 12
+OPT_HEADS = 40              # opt-13b: MHA, 40 heads of 128 (phase 13)
+FLEET_LAYERS = 12           # phase 6a-c's depth: its model is phase 4's
 SPANS = ("engine.prefill_wave", "engine.prefill_chunks", "engine.decode")
 MOE_SPAN = "model.moe"      # nested inside SPANS: a MoE layer's routing + FFN
 
@@ -754,6 +776,14 @@ def phase_kernels(torch, seed: int) -> dict:
           for _ in range(3)]
     flash_shapes.append(("phi3-vision prefill (2,1152,32,96) causal",
                          (*vq, {})))
+    # opt-13b's packed prefill (phase 13a): MHA, 40 heads of 128 (G = 1),
+    # the qwen3 row's segments; drawn from a generator of their own, so
+    # that the other rows keep their inputs
+    ogen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    oq = [torch.randn(1, T, OPT_HEADS, hd, generator=ogen, device="cuda")
+          for _ in range(3)]
+    flash_shapes.append((f"opt-13b packed prefill (1,{T},{OPT_HEADS},{hd}) "
+                         f"G 1 segments {lens}", (*oq, dict(segment_ids=seg))))
     flash_recs = []
     for label, (q, k, v, kw) in flash_shapes:
         for dtype, dn in ((torch.float32, "float32"), (dt, "bfloat16")):
@@ -789,6 +819,10 @@ def phase_kernels(torch, seed: int) -> dict:
     ctx[0], ctx[1] = 1, C
     paged_recs = [_decode_serving(torch, gen, ctx, H, K, hd, paged_errs)
                   for H, K, hd in ((32, 8, 128), (32, 32, 112))]
+    # opt-13b's decode (phase 13a): 40 heads of 128, G = 1, the same
+    # contexts; before the zamba2 row, which stays last (the top level)
+    paged_recs.insert(-1, _decode_serving(torch, ogen, ctx, OPT_HEADS,
+                                          OPT_HEADS, 128, paged_errs))
     # the (8, 2048) row's heads and contexts in pages of SMALL_PAGE slots
     paged_recs.insert(1, _decode_small_pages(torch, gen, ctx, paged_errs))
     # phase 9a's decode: four full rings of WINDOW slots
@@ -1779,11 +1813,22 @@ def phase_chaos(torch, cfg, params, seed: int) -> dict:
     return res
 
 
+def _cut_depth(cfg, params, n: int) -> tuple:
+    """``cfg`` cut to its first ``n`` layers, and views of their weights
+    in ``params``."""
+    from repro_torch.models import model
+    cut = cfg.with_(num_layers=n)
+    return cut, {k: params[k] if params[k].shape == m.shape
+                 else params[k][:m.shape[0]]
+                 for k, m in model.param_tree(cut).items()}
+
+
 def phase_fleet(torch, smi: str, params, chaos: dict, seed: int) -> dict:
-    """6a-6c at full width on phase 4's weights; ``chaos`` is 6d's
+    """6a-6c at full width on phase 4's weights cut to their first
+    ``FLEET_LAYERS`` layers (phase 4 serves all 36); ``chaos`` is 6d's
     result."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3_8b")
+    cfg, params = _cut_depth(get_config("qwen3_8b"), params, FLEET_LAYERS)
     t0 = time.monotonic()
     parts = {"6a": phase_kv_roundtrip(torch, cfg, params, seed)}
     torch.cuda.empty_cache()
@@ -2211,7 +2256,8 @@ def phase_train_parity(torch, seed: int) -> dict:
 # --------------------------------------------------------------------------- #
 # (arch, shape, on the multi-pod (2, 32, 8) mesh of 512 ranks): the
 # multi-pod prefill_32k shards a batch of 32 over 64 batch ranks (padded
-# rows), and arctic's decode contracts its experts inside each pod
+# rows; phi3.5-MoE's dispatch cuts the real tokens into rows of half a
+# sequence), and arctic's decode contracts its experts inside each pod
 DRYRUN_COMBOS = [("qwen3-8b", "train_4k", False),
                  ("qwen3-8b", "prefill_32k", False),
                  ("qwen3-8b", "decode_32k", False),
@@ -2220,6 +2266,7 @@ DRYRUN_COMBOS = [("qwen3-8b", "train_4k", False),
                  ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
                  ("arctic-480b", "train_4k", False),
                  ("qwen3-8b", "prefill_32k", True),
+                 ("phi3.5-moe-42b-a6.6b", "prefill_32k", True),
                  ("arctic-480b", "decode_32k", True)]
 # 12b's cuts of the production shapes' global batch (the whole batch is a
 # data-parallel one over 32 cards): one prompt of 32768 tokens; 8 rows of
@@ -2407,6 +2454,276 @@ def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: opt-13b, the reference launcher's default model
+# --------------------------------------------------------------------------- #
+# 13b's KV budget in tokens, a third of its workload's 12466 (seed 0): the
+# predictor's misses (accuracy 0.5) under-provision groups, and the
+# ladder lends KVC, swaps to the host and recomputes
+OPT_KVC = 4096
+OPT_RL_ACCURACY = 0.5
+
+
+def _pressure_workload(cfg, seed: int):
+    """16 greedy requests of 128-1024 prompt and 96-384 output tokens:
+    outputs long enough that a predictor's miss of a bucket or more
+    under-provisions a group."""
+    import numpy as np
+    from repro_torch.serving import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    return [GenRequest(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(128, 1025)))],
+        params=SamplingParams(max_new_tokens=int(rng.integers(96, 385))))
+        for _ in range(16)]
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_opt(torch, smi: str, seed: int) -> tuple:
+    """13a: opt-13b at its published widths and depth (40 layers, d 5120,
+    MHA 40 heads of 128, d_ff 20480, vocab 50272), bf16, seeded random
+    weights, max_batch 8, capacity 2048, default EngineConfig, on phase
+    4's workload: one unsynchronised timed run with phase 4's gates, then
+    one under ``torch.profiler``. Returns (result, weights)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("opt_13b")
+    L = cfg.num_layers
+    res, eng = _serve_full(torch, smi, cfg, "13a opt", _workload(cfg, seed),
+                           max_batch=8, capacity=2048, seed=seed)
+    if eng.n_chunk_calls <= 0 or eng.n_mega_windows <= 0:
+        raise AssertionError(f"[13a] chunk calls {eng.n_chunk_calls}, "
+                             f"megastep windows {eng.n_mega_windows}")
+    res["weights_gb"] = _nbytes(eng.params) / 1e9
+    res["caches_gb"] = _nbytes(eng.caches) / 1e9
+    log(f"[13a opt] {json.dumps(res)}")
+    params = eng.params
+    del eng
+    res["profile"] = p = phase_profile(torch, cfg, params, seed,
+                                       res["wall_s"], "13a", L)
+    log(f"[13a opt] {smi}: {res['tok_per_s']:.2f} tokens/s, device busy "
+        f"{p['device_busy_s']} s, idle share {p['idle_share']}, decode "
+        f"device ms/iter {p['decode_device_ms_per_iter']}, prefill device "
+        f"ms/call {p['prefill_device_ms_per_call']}, aten launches/decode "
+        f"iter {p['aten_launches_per_decode_iter']}, attention launches "
+        f"{res['launches']}, peak {res['peak_mem_gb']:.2f} GB (weights "
+        f"{res['weights_gb']:.2f}, caches {res['caches_gb']:.2f})")
+    return res, params
+
+
+def phase_opt_pressure(torch, cfg, params, seed: int, tag: str) -> tuple:
+    """13b (and 13c's pressure run): ``params`` on ``_pressure_workload``
+    under ``OPT_KVC`` tokens of KVC and a predictor of accuracy
+    ``OPT_RL_ACCURACY``, max_batch 8, capacity 2048: at least two host
+    swap captures and one restore, every restore seated bit for bit from
+    an image that passed its ``kv_checksum``, every request completed
+    exactly once with in-vocabulary tokens, and no KVC, host-pool or slot
+    left held. Logs each capture's and restore's image and seconds.
+    Returns (result, requests)."""
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models.config import ATTN
+    from repro_torch.serving import ServingEngine
+    t0 = time.monotonic()
+    eng = ServingEngine(
+        cfg, params, max_batch=8, capacity=2048, seed=seed, device="cuda",
+        rl_accuracy=OPT_RL_ACCURACY,
+        scheduler_cfg=SchedulerConfig(kvc_tokens=OPT_KVC, block_size=32,
+                                      tfs=2048, max_model_len=2048,
+                                      max_batch_reqs=8))
+    reqs = _pressure_workload(cfg, seed)
+    events = []
+    swap_out, swap_in, seat = eng._swap_out, eng._swap_in, eng._seat_image
+
+    def timed_out(rid, slot):
+        n0, t = eng.n_swap_captures, time.monotonic()
+        swap_out(rid, slot)
+        if eng.n_swap_captures > n0:
+            img = eng._host_swap[rid]
+            events.append({"capture": rid, "ctx": img["ctx"],
+                           "mb": _nbytes(img["kv"]) / 1e6,
+                           "s": time.monotonic() - t})
+
+    def timed_in(missing, now):
+        imgs = {r.rid: eng._host_swap[r.rid] for r in missing
+                if r.rid in eng._host_swap}
+        n0, t = eng.n_swap_restores, time.monotonic()
+        left = swap_in(missing, now)
+        torch.cuda.synchronize()
+        if eng.n_swap_restores > n0:
+            events.append({"restore": sorted(imgs), "restored":
+                           eng.n_swap_restores - n0, "mb": sum(
+                               _nbytes(i["kv"]) for i in imgs.values())
+                           / 1e6, "s": time.monotonic() - t})
+        return left
+
+    def checked_seat(g, kv, ctx, last):
+        seat(g, kv, ctx, last)
+        slot = eng.slot_of[g.rid]
+        for n in ("k", "v"):
+            if not torch.equal(eng.caches[ATTN][n][:, slot, :ctx],
+                               kv[ATTN][n].to(eng.device)):
+                raise AssertionError(f"[{tag}] request {g.rid}: the "
+                                     f"restored cache row {n} differs "
+                                     f"from its image")
+
+    eng._swap_out, eng._swap_in, eng._seat_image = \
+        timed_out, timed_in, checked_seat
+    _zero_launches()
+    t1 = time.monotonic()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    # a preempted group's window may stop short: decode a multiple only
+    launches = _read_launches(tag, cfg.num_layers)
+    s, kvc = eng.scheduler, eng.scheduler.kvc
+    done = sorted(r.rid for r in s.completed)
+    for g in reqs:
+        if g.status != "completed" or \
+                len(g.output) != g.params.max_new_tokens:
+            raise AssertionError(f"[{tag}] request {g.rid}: {g.status} "
+                                 f"{len(g.output)}/"
+                                 f"{g.params.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in g.output):
+            raise AssertionError(f"[{tag}] request {g.rid}: token out of "
+                                 f"vocab")
+    if done != sorted(g.rid for g in reqs) or eng.n_dup_completions:
+        raise AssertionError(f"[{tag}] completions {done}, duplicates "
+                             f"{eng.n_dup_completions}")
+    if eng.n_swap_captures < 2 or eng.n_swap_restores < 1 \
+            or eng.n_swap_rejects:
+        raise AssertionError(f"[{tag}] swap captures {eng.n_swap_captures}"
+                             f", restores {eng.n_swap_restores}, rejects "
+                             f"{eng.n_swap_rejects}")
+    kvc.check_invariants()
+    if kvc.allocs or kvc.free_blocks != kvc.total_blocks or kvc.swapped \
+            or kvc.host_used or eng._host_swap or eng.slot_of \
+            or sorted(eng.free_slots) != list(range(eng.max_batch)):
+        raise AssertionError(
+            f"[{tag}] left held: {len(kvc.allocs)} allocations, "
+            f"{kvc.total_blocks - kvc.free_blocks} blocks, "
+            f"{len(kvc.swapped)} swapped, {len(eng._host_swap)} images, "
+            f"slots {eng.slot_of}")
+    toks = sum(len(g.output) for g in reqs)
+    res = {"kvc_tokens": OPT_KVC, "rl_accuracy": OPT_RL_ACCURACY,
+           "demand_tokens": sum(len(g.prompt) + g.params.max_new_tokens
+                                for g in reqs),
+           "wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
+           "swap_captures": eng.n_swap_captures,
+           "swap_restores": eng.n_swap_restores,
+           "swap_drops": eng.n_swap_drops, "hosted": s.n_hosted,
+           "preempt_free": s.n_preempt_free,
+           "preempt_swap": s.n_preempt_swap,
+           "underprovisioned": s.n_underprov,
+           "reserve_rescues": s.n_reserve_rescues,
+           "decode_iters": eng.decode_iters,
+           "mega_windows": eng.n_mega_windows,
+           "prefill_waves": eng.n_prefill_waves,
+           "chunk_calls": eng.n_chunk_calls,
+           "sync_counts": dict(eng.sync_counts), "launches": launches,
+           "swaps": events, "seconds": time.monotonic() - t0}
+    log(f"[{tag}] {json.dumps(res)}")
+    return res, reqs
+
+
+def phase_13(torch, smi: str, seed: int) -> dict:
+    """13a, then 13b on 13a's weights, then 13c."""
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    opt, params = phase_opt(torch, smi, seed)
+    torch.cuda.empty_cache()
+    opt["pressure"], _ = phase_opt_pressure(
+        torch, get_config("opt_13b"), params, seed, "13b pressure")
+    del params
+    torch.cuda.empty_cache()
+    opt["parity"] = phase_opt_parity(torch, seed)
+    log(f"[13 opt] phase 13 took {time.monotonic() - t0:.1f}s")
+    return opt
+
+
+# a top-2 logit gap, in units of the logits' standard deviation, that
+# float32 rounding closes: where a prompt sits in a packed call moves
+# opt-13b's float32 logits (std 1.0) at 4 layers by about 1e-5
+# (``scripts/composition_check.py``)
+TIE = 1e-4
+
+
+def _tie_checked(torch, model, cfg, params, i, got, want) -> dict:
+    """A greedy stream ``got`` that parts from ``want`` (the same request,
+    another schedule): at the first differing token both tokens must tie
+    (each within ``TIE`` standard deviations of the top logit of one
+    prefill over the common prefix), and from there on each token of
+    ``got`` must be the top logit of one prefill over its own prefix, or
+    tie with it. Anything else raises."""
+    j = next((j for j, (a, b) in enumerate(zip(got.output, want.output))
+              if a != b), None)
+    if j is None:
+        raise AssertionError(f"[13c] request {i}: {len(got.output)} "
+                             f"against {len(want.output)} tokens")
+    P = len(got.prompt)
+    toks = torch.tensor([list(got.prompt) + got.output[:-1]], device="cuda")
+    logits, _ = model.prefill(cfg, params, toks)
+    rows = logits[0, P - 1 + j:].double()           # predicting got[j:]
+    top = rows.max(-1).values
+    std = rows.std(-1)
+    chosen = torch.tensor(got.output[j:], device="cuda")
+    lag = (top - rows.gather(1, chosen[:, None])[:, 0]) / std
+    tie0 = float((top[0] - rows[0, want.output[j]]) / std[0])
+    if float(lag.max()) > TIE or tie0 > TIE:
+        t = int(lag.argmax())
+        raise AssertionError(
+            f"[13c] request {i}: the stream under pressure parts from the "
+            f"pressure-free one at token {j} ({got.output[j:j + 4]} "
+            f"against {want.output[j:j + 4]}), not at a float32 tie: the "
+            f"free run's token there is {tie0:.3e} std below the top "
+            f"logit, and the pressured stream's token {j + t} is "
+            f"{float(lag[t]):.3e} std below it (tie below {TIE})")
+    return {"request": i, "token": j, "gap_std": tie0,
+            "worst_after_std": float(lag.max()),
+            "tokens_checked": len(got.output) - j}
+
+
+def phase_opt_parity(torch, seed: int) -> dict:
+    """13c: opt-13b at full width cut to 4 layers, float32, TF32 off:
+    ``phase_parity``, then ``_pressure_workload`` on the same weights
+    under 13b's pressure (``phase_opt_pressure``) and without it (the
+    default scheduler config): the greedy streams equal token for token,
+    up to float32 ties (``_tie_checked``). A request's prompt chunks fall
+    into other packed calls under pressure, and the composition of a
+    call moves float32 results by rounding: a stream that meets a tie
+    may part there, and each of its later tokens is then held to the
+    model's own top logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("opt_13b").with_(num_layers=4, dtype="float32",
+                                      param_dtype="float32")
+    t0 = time.monotonic()
+    _zero_launches()
+    _, params = phase_parity(torch, seed, cfg, "13c")
+    launches = _read_launches("13c", cfg.num_layers)
+    free = ServingEngine(cfg, params, max_batch=8, capacity=2048, seed=seed,
+                         device="cuda")
+    want = _pressure_workload(cfg, seed)
+    free.run(want)
+    del free
+    res, got = phase_opt_pressure(torch, cfg, params, seed,
+                                  "13c pressure")
+    res["ties"] = [_tie_checked(torch, model, cfg, params, i, g, w)
+                   for i, (g, w) in enumerate(zip(got, want))
+                   if g.output != w.output]
+    del params
+    res["parity_launches"] = launches
+    res["seconds"] = time.monotonic() - t0
+    log(f"[13c] {len(got) - len(res['ties'])} of {len(got)} greedy "
+        f"streams under pressure equal to the pressure-free run, the "
+        f"others parting at float32 ties: {json.dumps(res['ties'])} "
+        f"({time.monotonic() - t0:.1f}s)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2423,45 +2740,64 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is false)")
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    clock = [time.monotonic()]
+
+    def lap(name: str) -> None:
+        """Free the phase's cached blocks and log the seconds it took."""
+        torch.cuda.empty_cache()
+        now = time.monotonic()
+        log(f"[time] phase {name}: {now - clock[0]:.1f}s")
+        clock[0] = now
+
     smi = phase_card(torch)
     phase_build()
+    lap("1-2")
     if args.profile_src:
         log(f"[profile-src] repro_torch from {repro_torch.__file__}")
         phase_main_path(torch, args.seed)
         return 0
     kern = phase_kernels(torch, args.seed)
+    lap("3")
     main, params = phase_main_path(torch, args.seed)
+    lap("4")
     # phase 6d takes phase 5's weights, which are freed before 6a-6c
     chaos = phase_chaos(torch, *phase_parity(torch, args.seed), args.seed)
+    lap("5, 6d")
     phase_rng_windows(torch, args.seed)
+    lap("5b")
     fleet = phase_fleet(torch, smi, params, chaos, args.seed)
     del params
-    torch.cuda.empty_cache()
+    lap("6a-c")
     zamba = phase_zamba(torch, smi, args.seed)
-    torch.cuda.empty_cache()
+    lap("7a")
     zamba["parity"] = phase_zamba_parity(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("7b")
     phase_xlstm(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("7c")
     moe = phase_moe(torch, smi, args.seed)
-    torch.cuda.empty_cache()
+    lap("8a")
     moe["parity"] = phase_moe_parity(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("8b")
     ring = phase_ring(torch, smi, args.seed)
-    torch.cuda.empty_cache()
+    lap("9a")
     ring["parity"] = phase_ring_parity(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("9b")
     phase_embeds(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("10")
     phase_train(torch, smi, args.seed)
-    torch.cuda.empty_cache()
+    lap("11a")
     phase_train_parity(torch, args.seed)
-    torch.cuda.empty_cache()
+    lap("11b")
     dry = phase_dryrun(torch)
+    lap("12a")
     sharded = phase_sharded(torch, smi, args.seed, dry["predicted"])
+    lap("12b")
+    opt = phase_13(torch, smi, args.seed)
+    lap("13")
     serving = {"4": main["launches"], "6": fleet["launches"],
                "7a": zamba["launches"], "8a": moe["launches"],
-               "9a": ring["launches"], "12b": sharded["launches"]}
+               "9a": ring["launches"], "12b": sharded["launches"],
+               "13a": opt["launches"], "13b": opt["pressure"]["launches"]}
     launches = {k: sum(n[k] for n in serving.values())
                 for k in ("flash_prefill", "paged_decode")}
     log(f"[launches] by serving phase: {json.dumps(serving)}")

@@ -5,16 +5,18 @@ prefill/decode roles (``--disagg``), with seeded random weights; or the
 trace-driven simulator (``--sim``), which runs no model.
 
 Usage:
-  python -m repro_torch.launch.serve --arch qwen3-8b --requests 12
-  python -m repro_torch.launch.serve --arch qwen3-8b --full --capacity 2048
-  python -m repro_torch.launch.serve --cluster 2 --router least-kvc --disagg
+  python -m repro_torch.launch.serve --requests 12
+  python -m repro_torch.launch.serve --full --capacity 2048
+  python -m repro_torch.launch.serve --arch qwen3-8b --cluster 2 --disagg
   python -m repro_torch.launch.serve --device cpu --requests 4
-  python -m repro_torch.launch.serve --arch opt-13b --sim --trace sharegpt \
+  python -m repro_torch.launch.serve --sim --trace sharegpt \
       --requests 500 --rate 5.0 --scheduler econoserve --cluster 4
 
-The default config mirrors ``.reduced()`` in float32; ``--full`` keeps the
-published widths and depth (bf16). Engines and fleets run on the card
-unless ``--device cpu`` is given.
+The model is opt-13b, the paper's own serving model, unless ``--arch``
+names another (the reference's default). The default config mirrors
+``.reduced()`` in float32; ``--full`` keeps the published widths and depth
+(bf16). Engines and fleets run on the card unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 
@@ -101,7 +103,7 @@ def run_sim(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="opt-13b")
     ap.add_argument("--sim", action="store_true",
                     help="trace-driven simulation instead of the engine")
     ap.add_argument("--scheduler", default="econoserve",

@@ -339,16 +339,18 @@ def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _constrain_acts(x) + _constrain_acts(y)
 
 
-def _ffn(p, cfg, h):
+def _ffn(p, cfg, h, rows=None):
     """The feed-forward of an attention block: dense SwiGLU, a MoE, or
     both summed (``moe_dense_residual``). Returns (y, the MoE's aux loss or
     None); serving drops the aux, as the reference's prefill does. Under
-    ``torch.profiler`` the MoE shows as the range ``model.moe``."""
+    ``torch.profiler`` the MoE shows as the range ``model.moe``. ``rows``:
+    the real batch of rows that ``_padded`` grew (the MoE routes those
+    alone)."""
     if not cfg.is_moe:
         return mlp.mlp_apply(p, h), None
     with torch.profiler.record_function("model.moe"):
         y, aux = moe.moe_apply({k[len(MOE):]: v for k, v in p.items()
-                                if k.startswith(MOE)}, cfg, h)
+                                if k.startswith(MOE)}, cfg, h, rows)
     if cfg.moe_dense_residual:
         y = y + mlp.mlp_apply(p, h)
     return y, aux
@@ -356,10 +358,10 @@ def _ffn(p, cfg, h):
 
 def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
                         prefix, prefix_len, prefix_positions,
-                        prefix_segment_ids):
+                        prefix_segment_ids, rows):
     """An attention block (an ``A`` layer or the shared block) over a
-    sequence; ``prefix`` is its seeded cache row {k, v} or None. Returns
-    (x, {k, v} of the call)."""
+    sequence; ``prefix`` is its seeded cache row {k, v} or None; ``rows``
+    the real batch (``_ffn``). Returns (x, {k, v} of the call)."""
     p = gather_fsdp(p, skip=MOE)
     h = _block_input(x, p[ATTN_NORM], cfg)
     y, (k, v) = attention.attn_prefill(
@@ -369,7 +371,7 @@ def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
         prefix_len=prefix_len, prefix_positions=prefix_positions,
         prefix_segment_ids=prefix_segment_ids)
     x = _residual(x, y)
-    y, _ = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg))
+    y, _ = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg), rows)
     return _residual(x, y), {"k": k, "v": v}
 
 
@@ -442,7 +444,7 @@ def _prefill_stack(cfg, params, tokens, positions, segment_ids,
     outs: Dict[str, list] = {k: [] for k in cfg.block_kinds()}
     shared = []
     akw = dict(prefix_len=prefix_len, prefix_positions=prefix_positions,
-               prefix_segment_ids=prefix_segment_ids)
+               prefix_segment_ids=prefix_segment_ids, rows=tokens.shape[0])
     for kind, i, p, inv in _walk(cfg, params):
         x = _constrain_acts(x)
         prefix = None if prefix_caches is None \
@@ -546,13 +548,14 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # training
 # --------------------------------------------------------------------------- #
-def _attn_block_train(p, cfg, x, positions, kv_heads):
-    """An attention block of the training forward: (x, MoE aux or None)."""
+def _attn_block_train(p, cfg, x, positions, kv_heads, rows):
+    """An attention block of the training forward: (x, MoE aux or None);
+    ``rows`` the real batch (``_ffn``)."""
     p = gather_fsdp(p, skip=MOE)
     h = _block_input(x, p[ATTN_NORM], cfg)
     x = _residual(x, attention.attn_train(p, cfg, h, positions,
                                           kv_heads=kv_heads))
-    y, aux = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg))
+    y, aux = _ffn(p, cfg, _block_input(x, p[MLP_NORM], cfg), rows)
     return _residual(x, y), aux
 
 
@@ -587,7 +590,7 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for kind, _, p, inv in _walk(cfg, params):
         x = _constrain_acts(x)
         if kind == ATTN:
-            x, a = run(_attn_block_train, p, cfg, x, positions, None)
+            x, a = run(_attn_block_train, p, cfg, x, positions, None, rows)
             if a is not None:
                 aux = aux + a
         else:
@@ -595,5 +598,5 @@ def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if inv is not None:
             scfg = _shared_cfg(cfg)
             x, _ = run(_attn_block_train, shared_params(params, cfg), scfg,
-                       x, positions, scfg.num_kv_heads)
+                       x, positions, scfg.num_kv_heads, rows)
     return unpad_rows(logits_fn(cfg, params, _whole_seq(x)), rows), aux

@@ -32,10 +32,19 @@ weights in place and all-reduces MB-sized partials over ``data`` instead
 of gathering the weights (``_expert_ffn_decode``).
 
 Under a batch that the batch axes do not divide, the model pads each
-rank's rows to ceil(B / n) (``dtensor.pad_rows``): a dispatch row is then
-a rank's block, pad rows included, which follow its real rows and so take
-no expert slot from them; its capacity counts the padded block, as a
-GShard group is a device's shard.
+rank's rows to ceil(B / n) (``dtensor.pad_rows``) and passes the real B
+down (``rows``): the dispatch then makes the reference's decisions on the
+real tokens alone. D comes from the real T = B S, the rows are the real
+tokens in flattened order cut into D parts of T / D, each with
+``capacity(cfg, T / D)`` slots an expert, and pad tokens take no slot and
+add nothing to the aux loss. No token moves: a rank's real tokens are a
+contiguous run of that order, so an assignment's position in its
+reference row is its position among the rank's own assignments to the
+same row and expert plus the count of those on earlier batch ranks, an
+exclusive scan of a (rows touched, E) count that one small all-gather
+over the batch ranks gives (``_route_padded``). Each rank scatters its
+kept assignments into a buffer of the reference rows it touches and
+combines locally, as when the batch divides.
 """
 from __future__ import annotations
 
@@ -107,28 +116,38 @@ def _local(e_flat, pos_s, E_loc: int, e0, Cl: int):
             torch.where(ok, pos_s, torch.full_like(pos_s, Cl)))
 
 
-def _dispatch(xf, e_flat, pos_s, k: int, E_loc: int, e0, Cl: int):
+def _rows_of(e_flat, row):
+    """Each assignment's buffer row: ``row`` (``_route_padded``), or the
+    row of ``e_flat`` it sits in."""
+    if row is not None:
+        return row
+    D = e_flat.shape[0]
+    return torch.arange(D, device=e_flat.device)[:, None].expand_as(e_flat)
+
+
+def _dispatch(xf, e_flat, pos_s, k: int, E_loc: int, e0, Cl: int,
+              row=None, R=None):
     """Scatter the (D,Tl*k) token copies of rows xf (D,Tl,d) into experts
-    [e0, e0 + E_loc) (``_local``): a (D,E_loc,Cl,d) buffer. Assignments to
-    other experts or past the capacity land in a column Cl that is cut
-    off."""
+    [e0, e0 + E_loc) (``_local``): a (D,E_loc,Cl,d) buffer, or one of R
+    rows where ``row`` gives each assignment's. Assignments to other
+    experts or past the capacity land in a column Cl that is cut off."""
     D, Tl, d = xf.shape
     e_w, pos_w = _local(e_flat, pos_s, E_loc, e0, Cl)
-    r = torch.arange(D, device=xf.device)[:, None].expand_as(e_flat)
+    r = _rows_of(e_flat, row)
     t_flat = torch.arange(Tl * k, device=xf.device) // k
-    buf = xf.new_zeros((D, E_loc, Cl + 1, d))
+    buf = xf.new_zeros((D if R is None else R, E_loc, Cl + 1, d))
     buf[r, e_w, pos_w] = xf[:, t_flat]
     return buf[:, :, :Cl]
 
 
-def _combine(out_buf, e_flat, pos_s, e0):
+def _combine(out_buf, e_flat, pos_s, e0, row=None):
     """Each (row, assignment)'s expert output from out_buf (D,E_loc,Cl,d)
-    holding experts [e0, e0 + E_loc); zero for a drop or another expert."""
+    holding experts [e0, e0 + E_loc), the buffer row ``row`` where given;
+    zero for a drop or another expert."""
     D, E_loc, Cl, d = out_buf.shape
     e_w, pos_w = _local(e_flat, pos_s, E_loc, e0, Cl)
     out = torch.cat([out_buf, out_buf.new_zeros((D, E_loc, 1, d))], dim=2)
-    r = torch.arange(D, device=out.device)[:, None].expand_as(e_flat)
-    return out[r, e_w, pos_w]                                   # (D,Tl*k,d)
+    return out[_rows_of(e_flat, row), e_w, pos_w]              # (D,Tl*k,d)
 
 
 def _swiglu_experts(p, buf):
@@ -171,17 +190,91 @@ def _expert_ffn_decode(p, buf, mesh):
             buf, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def _batch_rank(mesh) -> Tuple[int, int, list]:
+    """(this rank's index over the mesh's batch axes in row-major order, as
+    nested even shards order their chunks; those axes' rank count; their
+    mesh dims)."""
+    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
+    dims = [md for md, a in enumerate(names) if a in BATCH_AXES]
+    i, n = 0, 1
+    for md in dims:
+        i, n = i * mesh.size(md) + coord[md], n * mesh.size(md)
+    return i, n, dims
+
+
+def _padded_rows(n: int, blk: int, T: int, Tl: int) -> int:
+    """The most reference rows of Tl tokens that one batch rank's block of
+    ``blk`` padded tokens touches, when the T real tokens come first."""
+    return max((min((j + 1) * blk, T) - 1) // Tl - j * blk // Tl + 1
+               for j in range(n) if j * blk < T)
+
+
+def _route_padded(xf, router, k: int, E: int, Cl: int, mesh, T: int,
+                  Tl: int, R: int):
+    """``_route`` of this batch rank's block xf (1,blk,d) of a padded call
+    (inside a region), with the reference's decisions: the real tokens
+    (global index below T; a rank's come first in its block) in rows of Tl
+    by global index, positions within each (row, expert) counted over the
+    real assignments of every batch rank (an all-gather of each rank's
+    (R, E) counts), pads kept out of every slot and of the aux. Returns
+    ``_route``'s outputs, the shares scaled so that their mean over the
+    ranks is the reference's, and each assignment's buffer row (1,blk*k)
+    among the R reference rows from the block's first."""
+    _, blk, _ = xf.shape
+    i, n, dims = _batch_rank(mesh)
+    dev = xf.device
+    g = i * blk + torch.arange(blk, device=dev)            # global token
+    real = (g < T)[None]                                   # (1,blk)
+    lo = i * blk // Tl                                     # first row
+    row = (g // Tl - lo).clamp(0, R - 1).repeat_interleave(k)[None]
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)  # (1,blk,E)
+    gate, idx = top_k(probs, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = idx.reshape(1, blk * k)
+    key = row * E + e_flat                                 # (row, expert)
+    ok = real.repeat_interleave(k, dim=1)
+    onehot = F.one_hot(key, R * E) * ok[..., None]         # (1,blk*k,R*E)
+    cnt = onehot.sum(1)                                    # (1,R*E)
+    counts = cnt
+    for md in reversed(dims):                              # minor axis first
+        counts = all_gather_dim(counts, 0, mesh, md)       # (n,R*E) at last
+    # the same rows' counts on the ranks before this one: rank j's row r
+    # is reference row lo_j + r
+    lo_j = torch.arange(i, device=dev) * blk // Tl
+    off = lo + torch.arange(R, device=dev)[None] - lo_j[:, None]   # (i,R)
+    hit = (off >= 0) & (off < R)
+    prev = counts[:i].reshape(i, R, E).gather(
+        1, off.clamp(0, R - 1)[..., None].expand(i, R, E))
+    before = (prev * hit[..., None]).sum(0).reshape(1, R * E)
+    pos = (onehot.cumsum(1) - 1).gather(2, key[..., None])[..., 0] \
+        + before.gather(1, key)
+    keep = ok & (pos < Cl)
+    pos_s = torch.where(keep, pos, torch.full_like(pos, Cl))
+    tok_share = cnt.reshape(R, E).sum(0)[None].float() * (n / (T * k))
+    prob_mean = (probs * real[..., None]).sum(1) * (n / T)
+    return gate, e_flat, pos_s, keep, tok_share, prob_mean, row
+
+
 def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
-              D: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              D: int, real=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """D rows of T / D tokens, each with its own expert capacity (one row
     of all T tokens on a single device); under a mesh, ``local_map``
-    regions per rank."""
+    regions per rank. ``real``: x is a padded batch (``dtensor.pad_rows``)
+    of that many real rows, and the rows are the reference's over those
+    (``_route_padded``)."""
     B, S, d = x.shape
-    T, k, E = B * S, cfg.experts_per_token, cfg.num_experts
+    k, E = cfg.experts_per_token, cfg.num_experts
+    T = B * S if real is None else real * S
     Tl = T // D
     Cl = capacity(cfg, Tl)
-    xf = x.reshape(D, Tl, d)
     mesh = active_mesh() if is_dtensor(x) else None
+    if real is None:
+        nb, Tb = D, Tl                  # blocks of x that hold the rows
+    else:
+        nb = _batch_rank(mesh)[1]       # one block a batch rank
+        Tb = B * S // nb
+        R = _padded_rows(nb, Tb, T, Tl)
+    xf = x.reshape(nb, Tb, d)
     if mesh is None:
         gate, e_flat, pos_s, keep, tok_share, prob_mean = _route(
             xf, p["router"], k, E, Cl)
@@ -189,7 +282,7 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         out_buf = _swiglu_experts(p, buf)
         yv = _combine(out_buf, e_flat, pos_s, None)
     else:
-        if D > 1:
+        if D > 1 or real is not None:
             xf = maybe_constrain(xf, BATCH_AXES, None, None)
         else:
             # the tokens of one row, whole on every rank: one gather over
@@ -211,20 +304,28 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         # each scatter to their own experts (``dtensor.rows_heads``)
         rows, ebuf, full, experts = (0, None), (0, 1), (None, None), \
             (None, 0)
-        gate, e_flat, pos_s, keep, tok_share, prob_mean = rows_heads(
-            lambda a, r: _route(a, r, k, E, Cl), (xf, p["router"]),
-            (rows, full), (rows,) * 6)
+        if real is None:
+            row, R = None, None
+            gate, e_flat, pos_s, keep, tok_share, prob_mean = rows_heads(
+                lambda a, r: _route(a, r, k, E, Cl), (xf, p["router"]),
+                (rows, full), (rows,) * 6)
+        else:
+            gate, e_flat, pos_s, keep, tok_share, prob_mean, row = \
+                rows_heads(lambda a, r: _route_padded(
+                    a, r, k, E, Cl, mesh, T, Tl, R), (xf, p["router"]),
+                    (rows, full), (rows,) * 7)
         buf = rows_heads(
-            lambda a, e, s: _dispatch(a, e, s, k, E_loc, e0(), Cl),
-            (xf, e_flat, pos_s), (rows,) * 3, (ebuf,), heads=E)
+            lambda a, e, s, r: _dispatch(a, e, s, k, E_loc, e0(), Cl, r, R),
+            (xf, e_flat, pos_s, row), (rows,) * 4, (ebuf,), heads=E)
         # one row (D = 1): laid out within each pod, as on a single pod (a
         # pod holds the same tokens and weights), so that no gather of it
         # crosses pods
-        row_axes = BATCH_AXES if D > 1 else "data"
+        one_row = D == 1 and real is None
+        row_axes = "data" if one_row else BATCH_AXES
         buf = maybe_constrain(buf, row_axes, "model", None, None)
         data_n = mesh.size(names.index("data")) if "data" in names else 1
         f = p["w_gate"].shape[-1]
-        if D == 1 and ep and model_n > 1 and data_n > 1 \
+        if one_row and ep and model_n > 1 and data_n > 1 \
                 and d % data_n == 0 and f % data_n == 0:
             out_buf = _expert_ffn_decode(p, buf, mesh)
         else:
@@ -236,15 +337,15 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                 (ebuf,) + (experts,) * 3, (ebuf,), heads=E)
         out_buf = maybe_constrain(out_buf, row_axes, "model", None, None)
 
-        def combine(b, e, s):
-            yv = _combine(b, e, s, e0())
+        def combine(b, e, s, r):
+            yv = _combine(b, e, s, e0(), r)
             # other model ranks contribute their experts' tokens
             return psum(yv, mesh, names.index("model")) if ep else yv
 
-        yv = rows_heads(combine, (out_buf, e_flat, pos_s),
-                        (ebuf, rows, rows), (rows,), heads=E)
-    w = (gate.reshape(D, Tl * k) * keep).to(x.dtype)
-    y = (yv * w[..., None]).reshape(D, Tl, k, d).sum(dim=2).reshape(B, S, d)
+        yv = rows_heads(combine, (out_buf, e_flat, pos_s, row),
+                        (ebuf, rows, rows, rows), (rows,), heads=E)
+    w = (gate.reshape(nb, Tb * k) * keep).to(x.dtype)
+    y = (yv * w[..., None]).reshape(nb, Tb, k, d).sum(dim=2).reshape(B, S, d)
 
     # Switch-style load-balance aux loss over all D rows (of equal size)
     frac_tokens = tok_share.mean(0) * k
@@ -253,16 +354,19 @@ def _moe_rows(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     return y, aux
 
 
-def moe_apply(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+              rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y (B,S,d), aux load-balance loss, a float32 scalar).
 
     D = ``data_shards()`` rows; a decode-sized call (T < 16 D, or T not a
     multiple of D) keeps one row, so its tokens stay replicated over the
-    data axis (the reference's rule, ``moe.py:166-175``)."""
+    data axis (the reference's rule, ``moe.py:166-175``). ``rows``: the
+    real batch of a call whose x the model padded to more rows
+    (``dtensor.pad_rows``); T counts its tokens only."""
     B, S, _ = x.shape
-    T = B * S
+    real = rows if rows is not None and rows < B else None
+    T = (B if real is None else real) * S
     D = data_shards()
     if T % D != 0 or T < 16 * D:
         D = 1
-    return _moe_rows(p, cfg, x, D)
+    return _moe_rows(p, cfg, x, D, real)

@@ -6,10 +6,12 @@ same ranks), reduced zamba2 (decode and train: the
 chunked SSD as a region), reduced xlstm (train: the mLSTM chunks and the
 sLSTM scan as regions) and reduced
 phi3.5-MoE (prefill, decode, its expert-parallel ``local_map`` path against
-the single-process row-blocked ``D = 2`` path), each through
-``launch.shapes.build_step``; and the train launcher on that mesh against
-its 1x1 run. One ``torch.multiprocessing`` spawn of 4 ranks, one torch
-thread each."""
+the single-process row-blocked ``D = 2`` path; and, at a capacity factor
+that drops assignments, padded batches whose rows the MoE must cut from
+the real tokens alone, as the one process with the same ``data_shards()``
+does), each through ``launch.shapes.build_step``; and the train launcher
+on that mesh against its 1x1 run. One ``torch.multiprocessing`` spawn of 4
+ranks, one torch thread each."""
 import contextlib
 import io
 import os
@@ -27,7 +29,10 @@ import torch.multiprocessing as mp  # noqa: E402
 WORLD = 4
 RTOL = 1e-5
 F32 = dict(dtype="float32", param_dtype="float32")
-# (name, arch, shape kind, seq, batch): every step at a (2, 2) mesh's sizes
+MOE = "phi3.5-moe-42b-a6.6b"
+DROPS = 0.5             # a capacity factor at which some assignment drops
+# (name, arch, shape kind, seq, batch[, capacity factor]): every step at a
+# (2, 2) mesh's sizes
 CASES = [
     ("qwen3_train", "qwen3-8b", "train", 32, 4),
     ("qwen3_prefill", "qwen3-8b", "prefill", 32, 4),
@@ -45,10 +50,18 @@ CASES = [
     ("qwen3_prefill_batch1", "qwen3-8b", "prefill", 32, 1),
     ("qwen3_train_batch3", "qwen3-8b", "train", 32, 3),
     ("qwen3_decode_batch3", "qwen3-8b", "decode", 64, 3),
+    # the MoE under those pads: the real tokens in rows of T / 2 (16 and 48
+    # tokens), each with its own capacity, where a rank's padded block
+    # would be a row (of 32 and 64 tokens) at another capacity
+    ("moe_prefill_batch1_drops", MOE, "prefill", 32, 1, DROPS),
+    ("moe_prefill_batch3_drops", MOE, "prefill", 32, 3, DROPS),
+    ("moe_train_batch3_drops", MOE, "train", 32, 3, DROPS),
 ]
 # the same on a (pod 2, data 2, model 1) mesh built in the same spawn:
-# 2 rows over 4 batch ranks, two of which hold only pad rows
-POD_CASES = [("qwen3_prefill_pod_batch2", "qwen3-8b", "prefill", 32, 2)]
+# 2 rows over 4 batch ranks, two of which hold only pad rows; one row of 64
+# tokens, all on the first rank, makes four reference rows of 16
+POD_CASES = [("qwen3_prefill_pod_batch2", "qwen3-8b", "prefill", 32, 2),
+             ("moe_prefill_pod_batch1_drops", MOE, "prefill", 64, 1, DROPS)]
 LAUNCH = ["--arch", "qwen3-8b", "--reduced", "--steps", "2", "--batch", "4",
           "--seq", "32", "--device", "cpu"]
 
@@ -95,19 +108,41 @@ def _worst(a, b, whole: bool = False) -> float:
     return worst
 
 
-def _case(mesh, arch, kind, seq, batch) -> float:
+def _case(mesh, arch, kind, seq, batch, cf=None) -> tuple:
+    """(the worst difference of the sharded step from one process, the
+    MoE assignments that the one process dropped)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import ShapeSpec, build_step
+    from repro_torch.models import moe
     from repro_torch.models.common import set_mesh_axes
     cfg = get_config(arch).reduced().with_(**F32)
+    if cf is not None:
+        cfg = cfg.with_(capacity_factor=cf)
     step, args, _ = build_step(cfg, ShapeSpec("t", kind, seq, batch), mesh,
                                device="cpu", seed=0)
     plain = _full(args)
     out = _full(step(*args))
-    # one process, no mesh; the MoE keeps the mesh's two data rows
-    set_mesh_axes(("data", "model"), {"data": 2, "model": 2}, mesh=None)
-    ref = step(*plain)
-    set_mesh_axes(())
+    # one process, no mesh; the MoE keeps the mesh's data rows
+    # (``data_shards()``), and counts the assignments past a capacity
+    names = mesh.mesh_dim_names
+    set_mesh_axes(names, {a: mesh.size(i) for i, a in enumerate(names)},
+                  mesh=None)
+    route, drops = moe._route, []
+
+    def counting(*a):
+        got = route(*a)
+        drops.append(int((~got[3]).sum()))
+        return got
+    moe._route = counting
+    try:
+        ref = step(*plain)
+    finally:
+        moe._route = route
+        set_mesh_axes(())
+    return _diff(kind, out, ref), sum(drops)
+
+
+def _diff(kind, out, ref) -> float:
     if kind == "train":
         # AdamW's first step moves a param by about lr * sign(g), so a
         # rounding-level change of a gradient near zero moves the new param
@@ -182,8 +217,12 @@ def results():
 
 @pytest.mark.parametrize("name", [c[0] for c in CASES + POD_CASES])
 def test_sharded_step_equals_one_process(results, name):
+    drops = any(len(c) > 5 for c in CASES + POD_CASES if c[0] == name)
     for rank, out in results.items():
-        assert out[name] <= RTOL, (rank, out[name])
+        worst, dropped = out[name]
+        assert worst <= RTOL, (rank, worst)
+        if drops:       # a capacity binds: the rows decide what stays
+            assert dropped > 0, rank
 
 
 def test_launcher_on_a_2x2_mesh_equals_1x1(results):

@@ -1,8 +1,9 @@
-"""The port's row-blocked MoE (``moe_apply`` with ``data_shards() = 2``)
-held against the reference's ``D = 2`` path on the CPU, in float32, on the
-same weights and inputs, at a capacity factor of 0.5 so that rows drop
-tokens: the reference runs on a (1, 1) mesh with the data axis declared 2
-wide. Then the expert-parallel ``local_map`` path on a (2, 2) mesh of 4
+"""The port's row-blocked MoE (``moe_apply`` with ``data_shards()`` 2 or
+4) held against the reference's row-blocked path on the CPU, in float32,
+on the same weights and inputs, at a capacity factor of 0.5 so that rows
+drop tokens: the reference runs on a (1, 1) mesh with the data axis
+declared 2 or 4 wide (rows that cut across sequences, and a call small
+enough to keep one row). Then the expert-parallel ``local_map`` path on a (2, 2) mesh of 4
 ``gloo`` ranks against the single-process ``D = 2`` result (a prefill-sized
 call) and the ``D = 1`` result (a decode-sized call, the decode schedule
 over ``data``)."""
@@ -52,8 +53,12 @@ def _layer(cf=0.5):
     return jcfg, cfg, jl, tl
 
 
-@pytest.mark.parametrize("shape", [(2, 32), (4, 24), (1, 70)])
-def test_row_blocked_moe_matches_the_reference(shape):
+@pytest.mark.parametrize("shape,D", [
+    ((2, 32), 2), ((4, 24), 2), ((1, 70), 2),
+    # four data shards: a row of 32 tokens is decode-sized (one row),
+    # 96 tokens make rows of 24 that cut across sequences, 64 of 16
+    ((1, 32), 4), ((3, 32), 4), ((1, 64), 4)])
+def test_row_blocked_moe_matches_the_reference(shape, D):
     jcfg, cfg, jl, tl = _layer()
     x = np.random.default_rng(sum(shape)).standard_normal(
         (*shape, cfg.d_model)).astype(np.float32)
@@ -61,9 +66,9 @@ def test_row_blocked_moe_matches_the_reference(shape):
     mesh = jax.make_mesh((1, 1), AXES,
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     try:
-        jcommon.set_mesh_axes(AXES, {"data": 2, "model": 1}, mesh)
-        common.set_mesh_axes(AXES, {"data": 2, "model": 1})
-        assert jcommon.data_shards() == common.data_shards() == 2
+        jcommon.set_mesh_axes(AXES, {"data": D, "model": 1}, mesh)
+        common.set_mesh_axes(AXES, {"data": D, "model": 1})
+        assert jcommon.data_shards() == common.data_shards() == D
         with mesh:
             y_j, aux_j = jmoe.moe_apply(jl, jcfg, jnp.asarray(x))
         y_t, aux_t = moe.moe_apply(tl, cfg, torch.from_numpy(x))
@@ -72,10 +77,11 @@ def test_row_blocked_moe_matches_the_reference(shape):
         common.set_mesh_axes(())
     assert _rel(y_t, y_j) <= RTOL
     assert _rel(aux_t, aux_j) <= RTOL
-    # each row of T / 2 tokens has its own capacity, and some rows drop
-    Cl = moe.capacity(cfg, T // 2)
-    assert Cl == jmoe.capacity(jcfg, T // 2)
-    probs = torch.softmax(torch.from_numpy(x).reshape(2, T // 2, -1)
+    # each row of T / D tokens has its own capacity, and some rows drop
+    rows = D if T % D == 0 and T >= 16 * D else 1
+    Cl = moe.capacity(cfg, T // rows)
+    assert Cl == jmoe.capacity(jcfg, T // rows)
+    probs = torch.softmax(torch.from_numpy(x).reshape(rows, T // rows, -1)
                           @ tl["router"], dim=-1)
     _, idx = moe.top_k(probs, cfg.experts_per_token)
     loads = [np.bincount(r.ravel(), minlength=cfg.num_experts).max()
@@ -83,7 +89,7 @@ def test_row_blocked_moe_matches_the_reference(shape):
     assert max(loads) > Cl
     # and the rows differ from one global capacity
     y_1, _ = moe.moe_apply(tl, cfg, torch.from_numpy(x))
-    assert not torch.allclose(y_1, y_t)
+    assert torch.allclose(y_1, y_t) == (rows == 1)
 
 
 # --------------------------------------------------------------------------- #
