@@ -25,9 +25,15 @@ SMEM = 232448
 SMEM_SM = 233472
 HEAD_DIMS = pa._HEAD_DIMS
 # (batch, heads, kv heads, hd, capacity): full 8192-slot rings
-# (mistral-nemo), qwen3's decode_32k, the engine's (8, 2048) rows, zamba2
+# (mistral-nemo), qwen3's decode_32k, the engine's (8, 2048) rows, zamba2,
+# and the engine's rows of deepseek-coder-33b (G = 7), stablelm-12b (hd
+# 160) and musicgen-large (MHA at hd 64)
 SERVING = [(4, 32, 8, 128, 8192), (8, 32, 8, 128, 32768),
-           (8, 32, 8, 128, 2048), (8, 32, 32, 112, 2048)]
+           (8, 32, 8, 128, 2048), (8, 32, 32, 112, 2048),
+           (8, 56, 8, 128, 2048), (8, 32, 8, 160, 2048),
+           (8, 32, 32, 64, 2048)]
+SERVING_IDS = ["rings", "decode_32k", "rows_2048", "zamba2", "deepseek",
+               "stablelm", "musicgen"]
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
@@ -130,13 +136,13 @@ def test_cp_async_copy_arrives_once_a_lane():
     assert src.count("merge_if_last<bf16, HD>(") == 2
 
 
-@pytest.mark.parametrize("shape", SERVING, ids=["rings", "decode_32k",
-                                                "rows_2048", "zamba2"])
+@pytest.mark.parametrize("shape", SERVING, ids=SERVING_IDS)
 def test_grid_is_one_whole_wave_at_the_serving_shapes(shape):
     B, H, K, hd, cap = shape
     p = pa.plan(B, H, K, hd, cap, cap)
     slots = p["ctas_per_sm"] * pa.N_SM
-    assert p["ctas_per_sm"] == 2
+    # hd 64's tiles are half as wide: a third CTA fits beside two
+    assert p["ctas_per_sm"] == (3 if hd == 64 else 2)
     # the wave is full: one more split of every row would start a second
     assert slots - B * K < p["grid"] <= slots
     assert p["waves"] == p["grid"] / slots
@@ -147,7 +153,24 @@ def test_serving_splits():
     assert [(pa.plan(B, H, K, hd, c, c)["n_split"],
              pa.plan(B, H, K, hd, c, c)["split"])
             for B, H, K, hd, c in SERVING] == [(8, 1024), (4, 8192), (4, 512),
+                                              (1, 2048), (4, 512), (4, 512),
                                               (1, 2048)]
+
+
+@pytest.mark.parametrize("shape", SERVING, ids=SERVING_IDS)
+def test_serving_stages_shared_memory_and_group(shape):
+    """What the bf16 kernel is built and launched with at each serving
+    shape: G = 7 runs the 8-head build, hd 160 keeps two stages, hd 64
+    four."""
+    B, H, K, hd, cap = shape
+    p = pa.plan(B, H, K, hd, cap, cap)
+    want = {"rings": (3, 102960, 4), "decode_32k": (3, 102960, 4),
+            "rows_2048": (3, 102960, 4), "zamba2": (3, 102960, 4),
+            "deepseek": (3, 103984, 8), "stablelm": (2, 103968, 4),
+            "musicgen": (4, 69184, 4)}[SERVING_IDS[SERVING.index(shape)]]
+    assert (p["stages"], p["smem"], p["group"]) == want
+    assert p["smem"] == pa.smem_bytes(hd, H // K, p["stages"])
+    assert p["copy"] == "tma" and p["box"] == p["tile"]
 
 
 def test_decode_library_key_covers_the_shared_headers():
