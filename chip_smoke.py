@@ -1,13 +1,14 @@
 """Card smoke test of the PyTorch port: build, check and time the CUDA
-kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE and mistral-nemo-12b
+kernels, then serve qwen3-8b, zamba2-7b, phi3.5-MoE (also at 32 rows,
+where its experts drop tokens at decode) and mistral-nemo-12b
 (sliding-window ring caches) at full width through ``ServingEngine``, run
 phi3-vision's embedding-frontend prefill, train qwen3-8b at full width
 through ``repro_torch.training``, dry-run the production mesh on the host,
 run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh,
 serve opt-13b (the serving launcher's default model) at full width and
-depth, under KV pressure too, and serve stablelm-12b, deepseek-coder-33b
-and musicgen-large at full width and depth, with musicgen's audio
-frontend.
+depth, under KV pressure too, serve stablelm-12b, deepseek-coder-33b and
+musicgen-large at full width and depth, with musicgen's audio frontend,
+and train phi3.5-MoE, zamba2-7b and xlstm-125m at full width.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -43,10 +44,11 @@ Phases (any failure raises and exits non-zero):
      packed prefill (1, 2048, 40, 128) and decode (8, 2048, 40, 128),
      G = 1; phase 14's packed prefills and (8, 2048) decodes of
      deepseek-coder-33b (56 heads over 8 of 128, G = 7), stablelm-12b (32
-     over 8 of 160) and musicgen-large (MHA, 32 of 64)), and the (8, 2048)
+     over 8 of 160) and musicgen-large (MHA, 32 of 64), phase 8c's 32
+     rows (32, 2048, 8, 128) at H 32), and the (8, 2048)
      decode row's heads and contexts in pages of 12 slots under a shuffled
      block table (SDPA over the same keys gathered into rows, the gather
-     not timed); at those eighteen,
+     not timed); at those nineteen,
      time kernel, plain version and one library call (SDPA, bool mask,
      ``enable_gqa``), and each flash shape also under the other q tile,
      and log each decode shape's plan and the decode wrapper's host
@@ -63,9 +65,11 @@ Phases (any failure raises and exits non-zero):
      bf16, seeded random weights), max_batch 8, capacity 2048, default
      EngineConfig, 12 requests; checks lengths, launch counters, chunk waves
      and megastep windows; prints tokens/s of the unsynchronised run, then
-     serves the same workload under ``torch.profiler`` for the device time
-     per prefill call and per decode iteration, the aten launches per
-     decode iteration and the idle share (one pass over the raw events);
+     (the profiled run) serves the same prompts with outputs cut to
+     ``PROFILE_TOKENS``, once unsynchronised and once under
+     ``torch.profiler``, for the device time per prefill call and per
+     decode iteration, the aten launches per decode iteration and the idle
+     share (one pass over the raw events);
   5. greedy parity: full width cut to 4 layers, float32, TF32 off: the
      engine's greedy streams equal an isolated prefill + decode_step loop;
      5b: with CUDA's Philox generator, megastep windows (K=8) that EOS cuts
@@ -92,12 +96,12 @@ Phases (any failure raises and exits non-zero):
      of the unsynchronised run and peak memory beside the card's name and
      power limit;
   7. the recurrent and hybrid families:
-     a. zamba2-7b at its published widths cut to 42 of its 81 Mamba2
-        layers (the shared MHA block at hd 112 7 of 13 times), bf16,
+     a. zamba2-7b at its published widths cut to 12 of its 81 Mamba2
+        layers (the shared MHA block at hd 112 2 of 13 times), bf16,
         seeded random weights, max_batch 8, capacity 2048, default
         EngineConfig, on phase 4's workload (exact-shape prefill,
         recomputed chunks): every request complete, flash launches a
-        multiple of 7, decode 7 x the decode iterations; tokens/s of the
+        multiple of 2, decode 2 x the decode iterations; tokens/s of the
         unsynchronised run,
         then the profiled run as phase 4's;
      b. greedy parity as phase 5's, zamba2-7b at full width cut to 12
@@ -107,15 +111,24 @@ Phases (any failure raises and exits non-zero):
         and the streams equal those of the recompute path;
   8. MoE:
      a. phi3.5-MoE at its published widths (16 experts of 6400, top-2,
-        capacity factor 1.25) cut to 24 of 32 layers (the weights of 32
-        do not fit one card beside the caches), bf16, on phase 4's
+        capacity factor 1.25) cut to 6 of 32 layers (the script's time
+        limit; 8c serves as many as fit), bf16, on phase 4's
         settings and workload: every request complete, megastep windows,
-        flash launches a multiple of 24, decode 24 x the decode
+        flash launches a multiple of 6, decode 6 x the decode
         iterations; tokens/s and peak memory of the unsynchronised run,
         then the profiled run as phase 4's, with the MoE's share of the
         device time (the ``model.moe`` ranges);
      b. greedy parity as phase 5's, phi3.5-MoE at full width cut to 4
         layers, float32, capacity factor 16 (nothing drops);
+     c. phi3.5-MoE at its published widths, bf16, max_batch 32 (an
+        expert's 8 slots of a 32-row decode call bind), at the depth that
+        ``_fit_depth`` finds room for, on 48 requests of phase 4's kind:
+        8a's gates, decode calls that drop (counted on the device, read
+        once), the widest decode batch, then the profiled run;
+     d. phi3.5-MoE reduced to 4 layers and 16 experts, float32, TF32 off,
+        max_batch 32, 48 greedy requests: the card's engine equals the
+        CPU's (streams up to float32 ties, decisions, ``sync_counts``, and
+        the dropped assignments of each decode call);
   9. ring caches:
      a. mistral-nemo-12b at its published widths and depth, bf16, window
         8192 (the reference's long-context window), max_batch 4, capacity
@@ -131,15 +144,17 @@ Phases (any failure raises and exits non-zero):
  11. training:
      a. qwen3-8b at its published widths cut to 12 of 36 layers, bf16
         params, float32 AdamW moments, remat, batch 1 x 4096 tokens (the
-        streaming flash attention), 20 steps on the synthetic data: the
+        streaming flash attention), 12 steps on the synthetic data: the
         loss falls; median step ms, tokens/s, peak memory, the model-FLOPs
         share, and one profiled step (device busy, idle share, GEMMs);
      b. one float32 train step (TF32 off) of qwen3-8b at full width cut to
         2 layers at S = 2304 on the card and on the CPU from the same
         weights and batch: loss, every grad and every updated param.
  12. sharding and launch:
-     a. ``repro_torch.launch.dryrun`` on the host, before any process
-        group: a fake process group of 256 ranks, fake tensors, the
+     a. ``repro_torch.launch.dryrun`` on the host, its traces in a pool
+        of spawned processes started after phase 8d that runs beside
+        phases 9-11, each trace in a fake world of its own: a
+        fake process group of 256 ranks, fake tensors, the
         production (32, 8) mesh; qwen3-8b at all four shapes, zamba2-7b
         decode_32k, phi3.5-MoE prefill_32k and arctic-480b train_4k at
         full size, and on the multi-pod (2, 32, 8) mesh of 512 ranks
@@ -162,9 +177,10 @@ Phases (any failure raises and exits non-zero):
         (chunk waves and megastep windows, flash a multiple of 40, decode
         40 x the decode iterations, no blocking sync); tokens/s, peak
         memory, then the profiled run as phase 4's;
-     b. the same weights under KV pressure: 16 greedy requests (128-1024
-        prompt, 96-384 output tokens) in 4096 tokens of KVC with a
-        predictor of accuracy 0.5: at least two host-swap captures and a
+     b. the same weights cut to their first 10 layers under KV pressure:
+        16 greedy requests (128-1024 prompt, 96-384 output tokens) in 4096
+        tokens of KVC with a predictor of accuracy 0.5: at least two
+        host-swap captures and a
         restore seated bit for bit from a checksummed image, lent KVC and
         recompute, every request completed once, nothing left held; each
         capture's and restore's image size and seconds;
@@ -187,9 +203,19 @@ Phases (any failure raises and exits non-zero):
         2048) served as 14a in bf16, then phase 10's check in float32
         over its 256 audio conditioning frames.
      Run in the order c, a, b, d.
+ 15. training the other families, as 11:
+     a-c. phi3.5-MoE cut to 3 of 32 layers (capacity factor 1.25: its
+        experts drop tokens), zamba2-7b cut to 24 of 81 layers (four
+        shared-block invocations) at batch 1 x 4096, and xlstm-125m at its
+        12 layers at batch 8 x 512, 12 steps each: the loss falls (last 4
+        against first 4) and stays finite; 11a's figures and profiled
+        step;
+     d. one float32 grad step at S = 512 on the card and on the CPU of
+        phi3.5-MoE at 1 layer (dropping), zamba2-7b at 6 (one shared
+        invocation) and xlstm-125m at 12: the loss and every grad, as 11b.
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
-7a, 8a, 9a, 13a, 13b, 14a, 14b and 14d and the sharded steps of 12b; the
+7a, 8a, 8c, 9a, 13a, 13b, 14a, 14b and 14d and the sharded steps of 12b; the
 top-level times are the zamba2 shapes, every timed shape under
 ``shapes``); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -232,8 +258,15 @@ OPT_HEADS = 40              # opt-13b: MHA, 40 heads of 128 (phase 13)
 # stablelm-12b (hd 160), musicgen-large (MHA, 32 heads of 64)
 FAMILIES_14 = ("deepseek_coder_33b", "stablelm_12b", "musicgen_large")
 FLEET_LAYERS = 12           # phase 6a-c's depth: its model is phase 4's
-ZAMBA_LAYERS = 42           # phase 7a's depth, of zamba2-7b's 81: the
+ZAMBA_LAYERS = 12           # phase 7a's depth, of zamba2-7b's 81: the
 #                             script's time limit
+MOE_LAYERS = 6              # phase 8a's depth, of phi3.5-MoE's 32: the
+#                             script's time limit (8c takes what fits)
+MOE_ROWS = 32               # phases 8c-d: max_batch, where an expert's
+#                             capacity of 8 binds at decode
+# the profiled reruns' output length (``_profile_workload``): the
+# profiler's cost grows with the ops it records, most of them decode's
+PROFILE_TOKENS = 16
 SPANS = ("engine.prefill_wave", "engine.prefill_chunks", "engine.decode")
 MOE_SPAN = "model.moe"      # nested inside SPANS: a MoE layer's routing + FFN
 
@@ -395,6 +428,7 @@ DECODE_PLAN_SHAPES = [
     ("deepseek (8,2048,8,128) H56", (8, 56, 8, 128, 2048, 2048)),
     ("stablelm (8,2048,8,160) H32", (8, 32, 8, 160, 2048, 2048)),
     ("musicgen (8,2048,32,64) H32", (8, 32, 32, 64, 2048, 2048)),
+    ("phi3.5-MoE rows (32,2048,8,128) H32", (32, 32, 8, 128, 2048, 2048)),
 ]
 
 
@@ -876,6 +910,15 @@ def phase_kernels(torch, seed: int) -> dict:
     paged_recs[-1:-1] = [_decode_serving(
         torch, ngen, ctx, c.num_heads, c.num_kv_heads, c.resolved_head_dim,
         paged_errs) for _, c in new]
+    # phase 8c's decode: phi3.5-MoE's 32 rows of C slots (``max_batch=32``,
+    # one split a row), contexts drawn as the (8, 2048) row's, from
+    # generators of their own
+    mgen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    ctx32 = torch.randint(1, C + 1, (MOE_ROWS,), generator=torch.Generator(
+        ).manual_seed(seed + 8)).int().cuda()
+    ctx32[0], ctx32[1] = 1, C
+    paged_recs.insert(-1, _decode_serving(torch, mgen, ctx32, H, K, hd,
+                                          paged_errs))
     # the (8, 2048) row's heads and contexts in pages of SMALL_PAGE slots
     paged_recs.insert(1, _decode_small_pages(torch, gen, ctx, paged_errs))
     # phase 9a's decode: four full rings of WINDOW slots
@@ -1287,7 +1330,7 @@ def phase_main_path(torch, seed: int) -> dict:
     log(f"[4 main] {json.dumps(res)}")
     params = eng.params
     del eng
-    res["profile"] = phase_profile(torch, cfg, params, seed, wall, "4", L)
+    res["profile"] = phase_profile(torch, cfg, params, seed, "4", L)
     return res, params
 
 
@@ -1313,8 +1356,10 @@ def read_profile(prof) -> dict:
     import bisect
     from torch.autograd import DeviceType
     spans, moe_spans, op_start, dev = [], [], {}, []
+    ranges = SPANS + (MOE_SPAN,)
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CPU:
+        kind = e.device_type()
+        if kind == DeviceType.CPU:
             name = e.name()
             if name in SPANS:
                 spans.append((e.start_ns(), e.end_ns(), name))
@@ -1322,11 +1367,12 @@ def read_profile(prof) -> dict:
                 moe_spans.append((e.start_ns(), e.end_ns()))
             elif e.linked_correlation_id() == 0:
                 op_start[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == DeviceType.CUDA and \
-                e.name() not in SPANS + (MOE_SPAN,):
+        elif kind == DeviceType.CUDA:
+            name = e.name()
             # (the ranges also show on the device timeline: not kernels)
-            dev.append((e.linked_correlation_id(), e.name(),
-                        e.duration_ns() / 1e3))
+            if name not in ranges:
+                dev.append((e.linked_correlation_id(), name,
+                            e.duration_ns() / 1e3))
     spans.sort()
     moe_spans.sort()
     starts = [s[0] for s in spans]
@@ -1338,9 +1384,12 @@ def read_profile(prof) -> dict:
     span_us = dict.fromkeys(SPANS, 0.0)
     span_n = dict.fromkeys(SPANS, 0)
     by_name: dict = {}
+    group_of: dict = {}         # a name's group, matched once
     for link, name, us in dev:
-        group = next((g for g, rx in KERNEL_GROUPS if rx.search(name)),
-                     "other")
+        group = group_of.get(name)
+        if group is None:
+            group = group_of[name] = next(
+                (g for g, rx in KERNEL_GROUPS if rx.search(name)), "other")
         groups[group] += us
         group_n[group] += 1
         tot = by_name.setdefault(name, [0.0, 0])
@@ -1362,26 +1411,50 @@ def read_profile(prof) -> dict:
             "span_launches": span_n, "top": top, "moe_us": moe_us}
 
 
-def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
-                  n_attn: int) -> dict:
-    """Where the time goes: the phase's workload again, on a fresh engine
-    with the same weights and seed, under ``torch.profiler``, read in one
-    pass by ``read_profile``. A phase's device time is that of the aten
-    kernels inside its ranges plus its attention kernels (flash: prefill
-    waves and chunk calls; paged decode: decode). A prefill call is one
-    forward pass of the stack, which launches flash once in each of its
-    ``n_attn`` attention layers (a packed wave or a chunk call of qwen3;
-    one exact-shape prompt or recomputed chunk of zamba2). The idle share
-    is 1 - (device kernel time / wall time of the unprofiled run of the
-    same workload)."""
+def _profile_workload(cfg, seed: int, n: int):
+    """The phase's workload (``_workload``) with each output cut to
+    ``PROFILE_TOKENS``: the same prompts and prefill calls, a third of the
+    decode iterations."""
+    import dataclasses
+    reqs = _workload(cfg, seed, n)
+    for g in reqs:
+        g.params = dataclasses.replace(g.params, max_new_tokens=min(
+            g.params.max_new_tokens, PROFILE_TOKENS))
+    return reqs
+
+
+def phase_profile(torch, cfg, params, seed: int, tag: str, n_attn: int,
+                  max_batch: int = 8, n: int = 12) -> dict:
+    """Where the time goes: the phase's workload with its outputs cut to
+    ``PROFILE_TOKENS`` (``_profile_workload``), once unsynchronised and
+    once under ``torch.profiler``, each on a fresh engine with the same
+    weights and seed, the profile read in one pass by ``read_profile``. A
+    phase's device time is that of the aten kernels inside its ranges plus
+    its attention kernels (flash: prefill waves and chunk calls; paged
+    decode: decode). A prefill call is one forward pass of the stack,
+    which launches flash once in each of its ``n_attn`` attention layers
+    (a packed wave or a chunk call of qwen3; one exact-shape prompt or
+    recomputed chunk of zamba2). The idle share is 1 - (device kernel
+    time / wall time of the unprofiled run of the same workload)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_prefill import flash_attention
     from repro_torch.serving import ServingEngine
 
-    eng = ServingEngine(cfg, params, max_batch=8, capacity=2048, seed=seed,
-                        device="cuda")
-    reqs = _workload(cfg, seed)
+    def engine():
+        return ServingEngine(cfg, params, max_batch=max_batch, capacity=2048,
+                             seed=seed, device="cuda")
+
+    eng = engine()
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.run(_profile_workload(cfg, seed, n))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    del eng
+    eng = engine()
+    reqs = _profile_workload(cfg, seed, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     flash0 = flash_attention.launches
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1408,7 +1481,8 @@ def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
     def ms_per(us, n):
         return us / 1e3 / n if us > 0.0 and n > 0 else None
 
-    res = {"wall_s_unprofiled": wall, "wall_s_profiled": wall_prof,
+    res = {"max_new_tokens": PROFILE_TOKENS, "wall_s_unprofiled": wall,
+           "wall_s_profiled": wall_prof,
            "device_busy_s": busy_us / 1e6,
            "idle_share": 1.0 - busy_us / 1e6 / wall if busy_us else None,
            "kernel_ms": {k: v / 1e3 for k, v in groups.items()},
@@ -1428,6 +1502,7 @@ def phase_profile(torch, cfg, params, seed: int, wall: float, tag: str,
            "moe_share_of_busy": rp["moe_us"] / busy_us if busy_us else None,
            "span_aten_device_ms": {k: v / 1e3 for k, v in span_us.items()},
            "span_aten_launches": rp["span_launches"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "prefill_calls": n_pf,
            "prefill_waves": eng.n_prefill_waves,
            "chunk_calls": eng.n_chunk_calls,
@@ -1638,7 +1713,7 @@ def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
 
 
 def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
-                **kw) -> tuple:
+                on_start=None, **kw) -> tuple:
     """Build an engine of ``cfg`` on the card with seeded random weights,
     warm it with one short request on a throwaway engine sharing them,
     then serve ``reqs`` once, unsynchronised, with the launch counts and
@@ -1646,7 +1721,8 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
     tokens in the vocabulary, the attention launches (flash a multiple of
     the ``n_attn`` attention layers, the depth by default; decode
     ``n_attn`` x decode iterations) and no blocking sync. Returns
-    (result, engine)."""
+    (result, engine). ``on_start``, if given, is called just before the
+    timed run."""
     from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
     L = cfg.num_layers
     t0 = time.monotonic()
@@ -1664,6 +1740,8 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if on_start is not None:
+        on_start()
     _zero_launches()
     t0 = time.monotonic()
     eng.run(reqs)
@@ -1914,7 +1992,7 @@ def phase_fleet(torch, smi: str, params, chaos: dict, seed: int) -> dict:
 def phase_zamba(torch, smi: str, seed: int) -> dict:
     """7a: zamba2-7b at its published widths (d 3584, the shared MHA block
     at hd 112 after every 6th layer) cut to its first ``ZAMBA_LAYERS`` of
-    81 Mamba2 layers (7 of 13 shared-block invocations), bf16, seeded
+    81 Mamba2 layers (2 of 13 shared-block invocations), bf16, seeded
     random weights, max_batch 8, capacity 2048, default EngineConfig, on
     phase 4's workload: one unsynchronised timed run, then one under
     ``torch.profiler``."""
@@ -1931,8 +2009,7 @@ def phase_zamba(torch, smi: str, seed: int) -> dict:
     log(f"[7a zamba2] {json.dumps(res)}")
     params = eng.params
     del eng
-    res["profile"] = phase_profile(torch, cfg, params, seed, res["wall_s"],
-                                   "7a", n_inv)
+    res["profile"] = phase_profile(torch, cfg, params, seed, "7a", n_inv)
     p = res["profile"]
     log(f"[7a zamba2] {smi}: {res['tok_per_s']:.2f} tokens/s, device busy "
         f"{p['device_busy_s']} s, idle share {p['idle_share']}, decode "
@@ -2020,12 +2097,13 @@ def phase_xlstm(torch, seed: int) -> dict:
 def phase_moe(torch, smi: str, seed: int) -> dict:
     """8a: phi3.5-MoE at its published widths (d 4096, 32/8 heads of 128,
     16 experts of 6400, top-2, capacity factor 1.25, vocab 32064) cut to
-    24 of its 32 layers, bf16, seeded random weights, max_batch 8,
-    capacity 2048, default EngineConfig, on phase 4's workload: one
+    ``MOE_LAYERS`` of its 32 layers, bf16, seeded random weights,
+    max_batch 8, capacity 2048, default EngineConfig, on phase 4's
+    workload: one
     unsynchronised timed run, then one under ``torch.profiler`` (with the
     MoE's share of device time)."""
     from repro_torch.configs import get_config
-    cfg = get_config("phi3_5_moe_42b").with_(num_layers=24)
+    cfg = get_config("phi3_5_moe_42b").with_(num_layers=MOE_LAYERS)
     res, eng = _serve_full(torch, smi, cfg, "8a moe", _workload(cfg, seed),
                            max_batch=8, capacity=2048, seed=seed)
     if eng.n_mega_windows <= 0:
@@ -2033,8 +2111,8 @@ def phase_moe(torch, smi: str, seed: int) -> dict:
     log(f"[8a moe] {json.dumps(res)}")
     params = eng.params
     del eng
-    res["profile"] = p = phase_profile(torch, cfg, params, seed,
-                                       res["wall_s"], "8a", cfg.num_layers)
+    res["profile"] = p = phase_profile(torch, cfg, params, seed, "8a",
+                                       cfg.num_layers)
     log(f"[8a moe] {smi}: {res['tok_per_s']:.2f} tokens/s, peak "
         f"{res['peak_mem_gb']:.2f} GB, device busy {p['device_busy_s']} s, "
         f"idle share {p['idle_share']}, decode device ms/iter "
@@ -2059,6 +2137,216 @@ def phase_moe_parity(torch, seed: int) -> dict:
     del params
     return {"seconds": time.monotonic() - t0,
             "launches": _read_launches("8b", cfg.num_layers)}
+
+
+@contextlib.contextmanager
+def _route_drops(when):
+    """While open, ``moe._route`` appends each call's dropped assignments,
+    ``(~keep).sum()`` (a device tensor: no host sync), to the yielded list
+    when ``when(list)`` holds."""
+    from repro_torch.models import moe
+    drops, route = [], moe._route
+
+    def counted(*a):
+        out = route(*a)
+        if when(drops):
+            drops.append((~out[3]).sum())
+        return out
+
+    moe._route = counted
+    try:
+        yield drops
+    finally:
+        moe._route = route
+
+
+@contextlib.contextmanager
+def _moe_decode_drops():
+    """Count what a MoE's decode calls drop: ``_route_drops`` of the calls
+    inside ``model.decode_step`` (a decode call: every ``max_batch`` row,
+    inactive ones too), while ``ServingEngine._run_decode_async`` logs the
+    requests of each decode iteration on the host. Yields {"drops": [...],
+    "iters": [[rid, ...], ...]}, which the caller reads once at the end.
+    Decode calls run in iteration order, ``depth`` of them an
+    iteration."""
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    iters, depth = [], [0]
+    step, decode = model.decode_step, ServingEngine._run_decode_async
+
+    def decoding(*a, **kw):
+        depth[0] += 1
+        try:
+            return step(*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    def run_decode(self, plan, now):
+        if plan.decode_reqs:
+            iters.append([r.rid for r in plan.decode_reqs])
+        return decode(self, plan, now)
+
+    model.decode_step, ServingEngine._run_decode_async = decoding, run_decode
+    try:
+        with _route_drops(lambda _: depth[0] > 0) as drops:
+            yield {"drops": drops, "iters": iters}
+    finally:
+        model.decode_step, ServingEngine._run_decode_async = step, decode
+
+
+def phase_moe_wide(torch, smi: str, seed: int) -> dict:
+    """8c: phi3.5-MoE at its published widths, bf16, at ``max_batch``
+    ``MOE_ROWS`` (32), where ``capacity(32) = 8`` slots an expert bind at
+    decode (64 assignments over 16 experts), capacity 2048, default
+    EngineConfig (whose scheduler admits 32 rows), at the depth that
+    ``_fit_depth`` finds room for, on ``_workload(cfg, seed, n=48)``:
+    phase 4's gates (every request complete, tokens in the vocabulary, no
+    blocking sync, flash a multiple of the depth, decode depth x decode
+    iterations, megastep windows), decode calls that drop (counted on the
+    device by ``_moe_decode_drops``, read once), the largest decode batch;
+    then the profiled run as 8a's."""
+    from repro_torch.configs import get_config
+    cfg = _fit_depth(torch, get_config("phi3_5_moe_42b"), "8c moe",
+                     max_batch=MOE_ROWS)
+    L = cfg.num_layers
+    with _moe_decode_drops() as rec:
+        def clear():
+            rec["drops"].clear()
+            rec["iters"].clear()
+        res, eng = _serve_full(torch, smi, cfg, "8c moe",
+                               _workload(cfg, seed, 48), on_start=clear,
+                               max_batch=MOE_ROWS, capacity=2048, seed=seed)
+    drops = torch.stack(rec["drops"]).sum().item()
+    iters = eng.decode_iters
+    calls = len(rec["drops"])
+    if eng.n_mega_windows <= 0 or calls != L * iters:
+        raise AssertionError(f"[8c] megastep windows {eng.n_mega_windows}, "
+                             f"{calls} decode calls for {iters} iterations "
+                             f"of {L} layers")
+    if drops <= 0:
+        raise AssertionError(f"[8c] no decode call dropped an assignment "
+                             f"({calls} calls)")
+    assignments = calls * MOE_ROWS * cfg.experts_per_token
+    res.update(layers=L, widest_decode_batch=max(map(len, rec["iters"])),
+               decode_drops=drops, decode_drops_per_iter=drops / iters,
+               decode_drop_share=drops / assignments,
+               weights_gb=_nbytes(eng.params) / 1e9,
+               caches_gb=_nbytes(eng.caches) / 1e9)
+    log(f"[8c moe] {json.dumps(res)}")
+    params = eng.params
+    del eng
+    res["profile"] = p = phase_profile(torch, cfg, params, seed, "8c", L,
+                                       max_batch=MOE_ROWS, n=48)
+    log(f"[8c moe] {smi}: {L} layers, {res['tok_per_s']:.2f} tokens/s, "
+        f"widest decode batch {res['widest_decode_batch']}, {drops} "
+        f"dropped assignments in {iters} decode iterations "
+        f"({drops / iters:.3f} an iteration, "
+        f"{100 * res['decode_drop_share']:.4f}% of {assignments}), peak "
+        f"{res['peak_mem_gb']:.2f} GB (profiled {p['peak_mem_gb']:.2f}), "
+        f"device busy {p['device_busy_s']} s, idle share "
+        f"{p['idle_share']}, decode device ms/iter "
+        f"{p['decode_device_ms_per_iter']}, prefill device ms/call "
+        f"{p['prefill_device_ms_per_call']}, MoE share of device time "
+        f"{p['moe_share_of_busy']}")
+    return res
+
+
+def _drop_workload(cfg, seed: int):
+    """8d: 48 greedy requests of 32-256 prompt and 16-64 output tokens."""
+    import numpy as np
+    from repro_torch.serving import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed + 23)
+    return [GenRequest(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(32, 257)))],
+        params=SamplingParams(max_new_tokens=int(rng.integers(16, 65))))
+        for _ in range(48)]
+
+
+def _decisions(eng, reqs) -> tuple:
+    """What 8d holds equal besides the streams: completion times, the
+    scheduler's decisions, ``sync_counts`` and the dispatch counters."""
+    s = eng.scheduler
+    return ([(g.rid, g.t_done) for g in reqs],
+            tuple(s.iter_completion_counts),
+            tuple((r.rid, r.t_complete, r.generated, r.n_preemptions)
+                  for r in s.completed),
+            s.n_preempt_free, s.n_preempt_swap, s.n_underprov, s.n_hosted,
+            dict(eng.sync_counts), eng.decode_iters, eng.n_decode_dispatches,
+            eng.n_prefill_waves, eng.n_chunk_calls, eng.n_prefill_chunks)
+
+
+def phase_moe_drops_parity(torch, seed: int) -> dict:
+    """8d: phi3.5-MoE reduced to 4 layers and 16 experts (capacity factor
+    1.25, top-2), float32, TF32 off, ``max_batch`` 32, capacity 512,
+    default scheduler, on ``_drop_workload``: the engine on the card and on
+    the CPU, from the same weights, give the same completion times,
+    scheduler decisions, ``sync_counts`` and counters, the same greedy
+    streams, and the same dropped assignments in each decode call (more
+    than 0 in all). A stream may part from the CPU's only at a float32 tie
+    of its top-2 logits (``_tie_checked``); the drops of later decode
+    calls then see other tokens, so with a parted stream they are held
+    equal up to the first decode call that is fed a parted token (and may
+    differ from there on). A parting where the logits do not tie (a router
+    choice that flipped, say) fails."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("phi3_5_moe_42b").reduced(layers=4, experts=16).with_(
+        dtype="float32", param_dtype="float32")
+    L = cfg.num_layers
+    t0 = time.monotonic()
+
+    def run(device, params=None):
+        t = time.monotonic()
+        with _moe_decode_drops() as rec:
+            eng = ServingEngine(cfg, params, max_batch=MOE_ROWS,
+                                capacity=512, seed=seed, device=device)
+            reqs = _drop_workload(cfg, seed)
+            eng.run(reqs)
+        drops = torch.stack(rec["drops"]).cpu().tolist()
+        return eng, reqs, drops, rec["iters"], time.monotonic() - t
+
+    _zero_launches()
+    card, got, card_drops, iters, card_s = run("cuda")
+    launches = _read_launches("8d", L, card.decode_iters)
+    cpu, want, cpu_drops, _, cpu_s = run(
+        "cpu", {k: v.cpu() for k, v in card.params.items()})
+    if _decisions(card, got) != _decisions(cpu, want):
+        raise AssertionError(f"[8d] the card's decisions or counters differ "
+                             f"from the CPU's: {_decisions(card, got)} != "
+                             f"{_decisions(cpu, want)}")
+    ties = [_tie_checked(torch, model, cfg, card.params, g.rid, g,
+                         types.SimpleNamespace(output=w.output), "8d")
+            for g, w in zip(got, want) if g.output != w.output]
+    first = next((i for i, (a, b) in enumerate(zip(card_drops, cpu_drops))
+                  if a != b), None)
+    # the first decode call whose input holds a parted token: request r's
+    # token j is fed to its j-th decode iteration
+    fed = min((L * [i for i, rids in enumerate(iters) if t["request"] in
+                    rids][t["token"]] for t in ties), default=None)
+    if len(card_drops) != len(cpu_drops) or sum(card_drops) <= 0 or (
+            first is not None and (fed is None or first < fed)):
+        raise AssertionError(f"[8d] decode drops: card {sum(card_drops)} in "
+                             f"{len(card_drops)} calls, CPU "
+                             f"{sum(cpu_drops)} in {len(cpu_drops)}, first "
+                             f"differing call {first}, first call fed a "
+                             f"parted token {fed}")
+    res = {"layers": L, "experts": cfg.num_experts,
+           "requests": len(got), "decode_iters": card.decode_iters,
+           "widest_decode_batch": max(map(len, iters)),
+           "decode_calls": len(card_drops),
+           "decode_drops": sum(card_drops),
+           "decode_calls_that_drop": sum(d > 0 for d in card_drops),
+           "first_differing_call": first, "ties": ties,
+           "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+           "seconds": time.monotonic() - t0}
+    log(f"[8d moe drops] card equals CPU (streams, decisions, sync_counts, "
+        f"drops per decode call): {json.dumps(res)}")
+    del card, cpu
+    return res
 
 
 def _ring_workload(cfg, seed: int):
@@ -2174,72 +2462,138 @@ def phase_embeds(torch, seed: int, arch: str = "phi3_vision_4_2b",
 # --------------------------------------------------------------------------- #
 # phase 11: training
 # --------------------------------------------------------------------------- #
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 12, 4096, 20
+# phase 11a's depth and tokens; 11a's and 15a-c's steps (cut to 12 for
+# the script's time limit); the steps that the loss gate averages at each
+# end, and that the median step leaves out
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_AVG = 12, 4096, 12, 4
+# phase 15a-c: (arch, layers kept of the published depth, batch, tokens)
+TRAIN_15 = (("phi3_5_moe_42b", 3, 1, 4096), ("zamba2_7b", 24, 1, 4096),
+            ("xlstm_125m", 12, 8, 512))
+# phase 15d: (arch, layers) of one float32 grad step at S = 512
+GRAD_15 = (("phi3_5_moe_42b", 1), ("zamba2_7b", 6), ("xlstm_125m", 12))
 
 
-def phase_train(torch, smi: str, seed: int) -> dict:
-    """11a: qwen3-8b at its published widths cut to 12 of 36 layers, bf16
-    params, float32 AdamW moments, remat, trained 20 steps at batch 1 and
-    S = 4096 (the streaming flash attention) on ``SyntheticDataset(seed)``
-    through ``repro_torch.training.train_loop.train``. The loss must fall
-    (the mean of the last 5 below that of the first 5). Prints the median
-    step ms over steps 5-19, tokens/s, peak memory and the model-FLOPs
-    share of the bf16 peak (6 x the matmul weights x the tokens, plus the
-    causal attention's 6 L H hd S^2 B; the remat recompute is not
-    counted); then one more step under ``torch.profiler``: device busy,
-    its idle share against the median step, and the GEMMs' share."""
+def _train_cfg(arch: str, layers: int):
+    """``arch`` at its published widths cut to its first ``layers``
+    layers (a hybrid's pattern and shared-block invocations cut with it)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    pat = cfg.layer_pattern[:layers] if cfg.layer_pattern else None
+    return cfg.with_(num_layers=layers, layer_pattern=pat)
+
+
+def _token_matmul_params(cfg, params) -> tuple:
+    """(the matmul weights a token passes through in a forward pass, the
+    attention layers it passes): every weight but the embedding, a MoE's
+    ``experts_per_token`` of its experts only, a shared block once for
+    each invocation."""
+    from repro_torch.models import model
+    from repro_torch.models.config import ATTN
+    n, E, k = 0, cfg.num_experts, cfg.experts_per_token
+    inv = model.num_shared_invocations(cfg)
+    for name, p in params.items():
+        if name == "tok_embed":
+            continue
+        if name.startswith("moe.w_"):
+            n += p.numel() * k // E
+        elif name.startswith(model.SHARED + "."):
+            n += p.numel() * inv
+        else:
+            n += p.numel()
+    return n, inv + cfg.pattern().count(ATTN)
+
+
+def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
+                batch: int = 1, seq: int = TRAIN_SEQ) -> dict:
+    """Training at published widths through
+    ``repro_torch.training.train_loop.train`` on ``SyntheticDataset(seed)``:
+    11a, qwen3-8b cut to 12 of 36 layers, at batch 1 and S = 4096 (the
+    streaming flash attention); or ``cfg`` (15a-c: phi3.5-MoE, zamba2-7b,
+    xlstm-125m) at ``batch`` x ``seq``; ``TRAIN_STEPS`` steps. bf16
+    params, float32 AdamW moments, remat. The loss must fall (the mean of
+    the last ``TRAIN_AVG`` below that of the first) and stay finite.
+    Prints the median step ms from step ``TRAIN_AVG`` on, tokens/s,
+    peak memory and the model-FLOPs share of the bf16 peak (6 x the matmul
+    weights a token passes through x the tokens, plus the causal
+    attention's 6 L H hd S^2 B; the remat recompute, the SSD's chunk scan
+    and the xLSTM cells are not counted); for a MoE also the expert FLOPs
+    that the (E, C, d) buffer executes, the aux loss and the dropped share
+    of the first step's forward; then one more step under
+    ``torch.profiler``: device busy, its idle share against the median
+    step, the GEMMs' share and the launches."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.training import train_loop
     from repro_torch.training.data import DataConfig, SyntheticDataset
     from repro_torch.training.optimizer import AdamWConfig
-    cfg = get_config("qwen3_8b").with_(num_layers=TRAIN_LAYERS)
+    if cfg is None:
+        cfg = get_config("qwen3_8b").with_(num_layers=TRAIN_LAYERS)
     opt = AdamWConfig(lr=3e-4, warmup_steps=5)
-    log(f"[11a train] {cfg.name} full width, {cfg.num_layers} of 36 layers, "
+    log(f"[{tag} train] {cfg.name} full width, {cfg.num_layers} layers, "
         f"params {cfg.param_dtype}, moments {opt.state_dtype}, remat "
-        f"{cfg.remat}, batch 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps")
+        f"{cfg.remat}, batch {batch} x {seq} tokens, {TRAIN_STEPS} steps")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stamps, losses = [], []
+    stamps, losses, auxes = [], [], []
 
     def on_step(i, m):
         stamps.append(time.monotonic())
         losses.append(m["loss"])
-        log(f"[11a train] step {i:2d} loss {m['loss']:.4f} gnorm "
-            f"{m['grad_norm']:.4f}")
+        auxes.append(m["aux"])
+        log(f"[{tag} train] step {i:2d} loss {m['loss']:.4f} aux "
+            f"{m['aux']:.4f} gnorm {m['grad_norm']:.4f}")
 
     t0 = time.monotonic()
-    params, state, _ = train_loop.train(
-        cfg, TRAIN_STEPS, opt=opt, batch_size=1, seq_len=TRAIN_SEQ,
-        seed=seed, log_every=1, callback=on_step, device="cuda")
+    # the first step's forward: its first num_layers calls
+    with _route_drops(lambda d: not losses and len(d) < cfg.num_layers) \
+            as drops:
+        params, state, _ = train_loop.train(
+            cfg, TRAIN_STEPS, opt=opt, batch_size=batch, seq_len=seq,
+            seed=seed,
+            log_every=1, callback=on_step, device="cuda")
     peak = torch.cuda.max_memory_allocated()
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
-    med_ms = statistics.median(step_ms[4:])         # steps 5..19
-    first, last = (statistics.fmean(losses[:5]),
-                   statistics.fmean(losses[-5:]))
+    med_ms = statistics.median(step_ms[TRAIN_AVG - 1:])
+    first, last = (statistics.fmean(losses[:TRAIN_AVG]),
+                   statistics.fmean(losses[-TRAIN_AVG:]))
     if not (all(map(math.isfinite, losses)) and last < first):
-        raise AssertionError(f"[11a train] the loss did not fall: {losses}")
+        raise AssertionError(f"[{tag} train] the loss did not fall: "
+                             f"{losses}")
     n_params = sum(p.numel() for p in params.values())
-    n_matmul = n_params - params["tok_embed"].numel()
-    T = TRAIN_SEQ
-    flops = 6 * n_matmul * T + 6 * cfg.num_layers * cfg.num_heads \
-        * cfg.resolved_head_dim * T * T
-    res = {"card": smi, "params": n_params, "matmul_params": n_matmul,
+    n_matmul, n_attn = _token_matmul_params(cfg, params)
+    T = batch * seq
+    flops = 6 * n_matmul * T + 6 * n_attn * cfg.num_heads \
+        * cfg.resolved_head_dim * seq * T
+    res = {"card": smi, "arch": cfg.name, "layers": cfg.num_layers,
+           "batch": batch, "seq": seq, "params": n_params,
+           "matmul_params_a_token": n_matmul, "attention_layers": n_attn,
            "first_step_s_with_init": stamps[0] - t0,
            "median_step_ms": med_ms, "step_ms": step_ms,
            "tokens_per_s": T / (med_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "model_flops_per_step": flops,
            "mfu": flops / (med_ms / 1e3) / PEAK_FLOPS["bfloat16"],
-           "loss_first5": first, "loss_last5": last, "losses": losses}
-    batch = train_loop.batch_to(next(SyntheticDataset(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=T, batch_size=1,
-        seed=seed + 1)).batches()), cfg, "cuda")
+           "loss_first": first, "loss_last": last,
+           "losses": losses}
+    if cfg.is_moe:
+        C = moe.capacity(cfg, T)
+        k, E = cfg.experts_per_token, cfg.num_experts
+        expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+        res.update(aux_first=auxes[0], capacity=C,
+                   dropped_share_first_step=float(torch.stack(drops).sum())
+                   / (cfg.num_layers * T * k),
+                   expert_flops_model=6 * cfg.num_layers * T * k * expert,
+                   expert_flops_executed=6 * cfg.num_layers * E * C * expert)
+    data = SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+        seed=seed + 1))
     step = train_loop.make_train_step(cfg, opt)
+    b = train_loop.batch_to(next(data.batches()), cfg, "cuda")
     torch.cuda.synchronize()
     t1 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(params, state, batch)
+        step(params, state, b)
         torch.cuda.synchronize()
     res["profiled_step_ms"] = 1e3 * (time.monotonic() - t1)
     rp = read_profile(prof)
@@ -2251,28 +2605,54 @@ def phase_train(torch, smi: str, seed: int) -> dict:
         res.update(device_busy_ms=busy, idle_share=1.0 - busy / med_ms,
                    gemm_share=groups["gemm"] / 1e3 / busy)
     else:
-        log("[11a train] the profiler recorded no device time: device busy "
-            "and idle share not measured")
-    log(f"[11a train] {json.dumps(res)}")
+        log(f"[{tag} train] the profiler recorded no device time: device "
+            f"busy and idle share not measured")
+    log(f"[{tag} train] {json.dumps(res)}")
     for us, n, key in rp["top"]:
-        log(f"[11a profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
-    del params, state, batch
+        log(f"[{tag} profile]   {us / 1e3:10.3f} ms {n:6d} x {key[:90]}")
+    del params, state, b
     return res
 
 
-def phase_train_parity(torch, seed: int) -> dict:
-    """11b: one train step of qwen3-8b at full width cut to 2 layers,
-    float32, TF32 off, at S = 2304 (above ``FLASH_THRESHOLD``, so
-    training's streaming flash attention runs, over a padded last block),
-    on the card and on the CPU from the same weights and batch; the CPU
-    run is the one the CPU tests hold against the reference. The step is
-    ``make_train_step``'s two halves: ``make_grad_fn`` (loss within 1e-5
-    relative, every grad within 1e-4 x max|g| of the CPU's leaf), then
-    ``apply_updates`` on each device from the CPU's grads (every updated
-    param within 1e-5). AdamW's first step moves a param by
-    lr * g / (|g| + eps), which turns a grad difference d near g = 0 into
-    up to lr / eps * d of param (12000 d here), so the update is held on
-    equal grads and the grads on their own."""
+def phase_train_others(torch, smi: str, seed: int) -> dict:
+    """15a-c: ``phase_train`` on phi3.5-MoE (3 of 32 layers; capacity
+    factor 1.25, so training drops), zamba2-7b (24 of 81 layers, four
+    shared-block invocations: the streaming training attention at hd 112,
+    G = 1) and xlstm-125m (all 12 layers, batch 8 x 512: the sLSTM's loop
+    launches a step's kernels token by token), 12 steps each, the loss
+    over the first and last 4."""
+    res = {}
+    for (arch, layers, batch, seq), tag in zip(TRAIN_15, "abc"):
+        t0 = time.monotonic()
+        r = phase_train(torch, smi, seed, _train_cfg(arch, layers),
+                        f"15{tag}", batch, seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["seconds"] = time.monotonic() - t0
+        res[arch] = r
+        log(f"[15{tag} train] {arch}: {layers} layers, median step "
+            f"{r['median_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} "
+            f"tokens/s, {100 * r['mfu']:.2f}% of bf16 peak in model FLOPs, "
+            f"{r['kernel_launches']} launches a step, peak "
+            f"{r['peak_mem_gb']:.2f} GB ({r['seconds']:.1f}s)")
+    return res
+
+
+def phase_train_parity(torch, seed: int, cfg=None, S: int = 2304,
+                       tag: str = "11b", update: bool = True) -> dict:
+    """One train step, float32, TF32 off, on the card and on the CPU from
+    the same weights and batch; the CPU run is the one the CPU tests hold
+    against the reference. 11b: qwen3-8b at full width cut to 2 layers at
+    S = 2304 (above ``FLASH_THRESHOLD``, so training's streaming flash
+    attention runs, over a padded last block); or ``cfg`` at ``S`` (15d).
+    The step is ``make_train_step``'s two halves: ``make_grad_fn`` (loss
+    within 1e-5 relative, every grad within 1e-4 x max|g| of the CPU's
+    leaf), then, with ``update``, ``apply_updates`` on each device from
+    the CPU's grads (every updated param within 1e-5). AdamW's first step
+    moves a param by lr * g / (|g| + eps), which turns a grad difference
+    d near g = 0 into up to lr / eps * d of param (12000 d here), so the
+    update is held on equal grads and the grads on their own. The update
+    is the same code for every family, so 15d holds grads only."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.training.data import DataConfig, SyntheticDataset
@@ -2281,10 +2661,10 @@ def phase_train_parity(torch, seed: int) -> dict:
     from repro_torch.training.train_loop import batch_to, make_grad_fn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen3_8b").with_(num_layers=2, dtype="float32",
-                                       param_dtype="float32")
+    if cfg is None:
+        cfg = get_config("qwen3_8b").with_(num_layers=2)
+    cfg = cfg.with_(dtype="float32", param_dtype="float32")
     opt = AdamWConfig(lr=3e-4, warmup_steps=5)
-    S = 2304
     batch = next(SyntheticDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=S, batch_size=1,
         seed=seed)).batches())
@@ -2293,30 +2673,54 @@ def phase_train_parity(torch, seed: int) -> dict:
     cpu = {k: p.cpu() for k, p in card.items()}
     grad_fn = make_grad_fn(cfg)
     t0 = time.monotonic()
-    l_gpu, _, g_gpu = grad_fn(card, batch_to(batch, cfg, "cuda"))
+    # the card's forward: its first num_layers calls
+    with _route_drops(lambda d: len(d) < cfg.num_layers) as drops:
+        l_gpu, _, g_gpu = grad_fn(card, batch_to(batch, cfg, "cuda"))
     l_gpu = float(l_gpu)
     t1 = time.monotonic()
     l_cpu, _, g_cpu = grad_fn(cpu, batch_to(batch, cfg, "cpu"))
     l_cpu = float(l_cpu)
     t2 = time.monotonic()
     grad_err = max(float((g_gpu[k].cpu() - g).abs().max())
-                   / float(g.abs().max()) for k, g in g_cpu.items())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in g_cpu.items())
     del g_gpu
-    apply_updates(card, {k: g.cuda() for k, g in g_cpu.items()},
-                  init_state(card, opt), opt)
-    apply_updates(cpu, g_cpu, init_state(cpu, opt), opt)
-    param_err = max(float((card[k].detach().cpu() - p.detach()).abs().max())
-                    for k, p in cpu.items())
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
-           "grad_err_share_of_max": grad_err, "param_max_abs_err": param_err,
-           "card_grad_s": t1 - t0, "cpu_grad_s": t2 - t1,
-           "update_s": time.monotonic() - t2}
-    log(f"[11b train parity] {json.dumps(res)}")
-    if not (loss_rel <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-5):
-        raise AssertionError(f"[11b train parity] the card's step differs "
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "seq": S,
+           "loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+           "grad_err_share_of_max": grad_err, "card_grad_s": t1 - t0,
+           "cpu_grad_s": t2 - t1}
+    if cfg.is_moe:
+        res["dropped_assignments"] = int(torch.stack(drops).sum())
+    param_err = 0.0
+    if update:
+        apply_updates(card, {k: g.cuda() for k, g in g_cpu.items()},
+                      init_state(card, opt), opt)
+        apply_updates(cpu, g_cpu, init_state(cpu, opt), opt)
+        param_err = max(float((card[k].detach().cpu() - p.detach()).abs()
+                              .max()) for k, p in cpu.items())
+        res.update(param_max_abs_err=param_err,
+                   update_s=time.monotonic() - t2)
+    log(f"[{tag} train parity] {json.dumps(res)}")
+    if not (loss_rel <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-5) \
+            or res.get("dropped_assignments", 1) <= 0:
+        raise AssertionError(f"[{tag} train parity] the card's step differs "
                              f"from the CPU's: {res}")
     del card, cpu, g_cpu
+    return res
+
+
+def phase_grad_others(torch, seed: int) -> dict:
+    """15d: ``phase_train_parity``'s grad half at S = 512 on phi3.5-MoE at
+    1 layer (capacity factor 1.25: its 80 slots an expert drop
+    assignments, counted on the card's forward, more than 0), zamba2-7b at
+    6 layers (one shared-block invocation) and xlstm-125m at its 12."""
+    res = {}
+    for arch, layers in GRAD_15:
+        res[arch] = phase_train_parity(torch, seed, _train_cfg(arch, layers),
+                                       512, "15d", update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2329,12 +2733,12 @@ def phase_train_parity(torch, seed: int) -> dict:
 # rows; phi3.5-MoE's dispatch cuts the real tokens into rows of half a
 # sequence), and arctic's decode contracts its experts inside each pod
 DRYRUN_COMBOS = [("qwen3-8b", "train_4k", False),
+                 ("arctic-480b", "train_4k", False),
                  ("qwen3-8b", "prefill_32k", False),
                  ("qwen3-8b", "decode_32k", False),
                  ("qwen3-8b", "long_500k", False),
                  ("zamba2-7b", "decode_32k", False),
                  ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
-                 ("arctic-480b", "train_4k", False),
                  ("qwen3-8b", "prefill_32k", True),
                  ("phi3.5-moe-42b-a6.6b", "prefill_32k", True),
                  ("arctic-480b", "decode_32k", True)]
@@ -2343,31 +2747,82 @@ DRYRUN_COMBOS = [("qwen3-8b", "train_4k", False),
 # 32768 slots (38.65 GB of caches beside 16.4 GB of weights)
 SHARDED_BATCH = {"prefill_32k": 1, "decode_32k": 8}
 SHARDED_STEPS = 3                   # timed steps of each after a warm one
+# 12a's processes: the two training traces take 1-2 minutes each, the rest
+# 10-25 s; four leave the host's other cores to the phases they run beside
+DRYRUN_WORKERS = 4
 
 
-def phase_dryrun(torch) -> dict:
-    """12a: ``repro_torch.launch.dryrun`` on the host: a fake process group
-    of 256 ranks, fake tensors, the production (32, 8) mesh, or 512 ranks
-    and the multi-pod (2, 32, 8) mesh; each combo of ``DRYRUN_COMBOS`` at
-    its full size must trace (``ok``); prints the
-    per-device bytes, whether they fit 80 GB, the roofline terms and the
-    bottleneck. Then the two shapes of 12b at their cut batches on a fake
-    (1, 1) mesh: the per-device totals 12b holds the card's peak to."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def _dryrun_1x1(name: str, batch: int) -> dict:
+    """12a's trace of qwen3-8b at 12b's shape ``name`` and cut ``batch``
+    on a fake (1, 1) mesh, in a fake world of its own."""
+    from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import SHAPES, ShapeSpec
-    t0 = time.monotonic()
-    # one spawned process a combo, each with its own fake world (the
-    # training traces take 1-2 minutes each on the host)
-    with ProcessPoolExecutor(max_workers=len(DRYRUN_COMBOS),
-                             mp_context=multiprocessing.get_context(
-                                 "spawn")) as pool:
-        futures = [pool.submit(dryrun.sweep, [arch], [shape], [multi],
-                               None, False)
-                   for arch, shape, multi in DRYRUN_COMBOS]
+    base = SHAPES[name]
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh(dryrun.mesh_device(), (1, 1),
+                                mesh_dim_names=("data", "model"))
+        return dryrun.run_one(
+            "qwen3-8b", name, False, verbose=False, mesh=mesh,
+            cfg=get_config("qwen3-8b"),
+            shape=ShapeSpec(name, base.kind, base.seq_len, batch))
+
+
+def start_dryrun() -> tuple:
+    """Start 12a's traces: each combo of ``DRYRUN_COMBOS`` and each shape
+    of ``SHARDED_BATCH``, one task a trace in a pool of
+    ``DRYRUN_WORKERS`` spawned processes (they trace with fake tensors,
+    so they run beside phases 9-11). Returns (start time, pool, combo
+    futures, 1x1 futures, the times at which tasks ended) for
+    ``phase_dryrun``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun
+    pool = ProcessPoolExecutor(max_workers=DRYRUN_WORKERS,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    t0, ended = time.monotonic(), []
+    futures = [pool.submit(dryrun.sweep, [arch], [shape], [multi], None,
+                           False) for arch, shape, multi in DRYRUN_COMBOS]
+    futures_1x1 = {name: pool.submit(_dryrun_1x1, name, batch)
+                   for name, batch in SHARDED_BATCH.items()}
+    for f in futures + list(futures_1x1.values()):
+        f.add_done_callback(lambda _: ended.append(time.monotonic()))
+    return t0, pool, futures, futures_1x1, ended
+
+
+def stop_dryrun(started: tuple) -> None:
+    """End 12a's pool: cancel what has not started and end the processes
+    (a no-op after ``phase_dryrun`` has collected every trace)."""
+    pool = started[1]
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for proc in procs:
+        proc.terminate()
+    for proc in procs:
+        proc.join(5)
+
+
+def phase_dryrun(started: tuple) -> dict:
+    """12a: ``repro_torch.launch.dryrun`` on the host: a fake process group
+    of 256 ranks, fake tensors, the production (32, 8) mesh, or 512 ranks
+    and the multi-pod (2, 32, 8) mesh; each combo of ``DRYRUN_COMBOS`` at
+    its full size must trace (``ok``; ``started`` by ``start_dryrun``);
+    prints the per-device bytes, whether they fit 80 GB, the roofline
+    terms and the bottleneck. Then the two shapes of 12b at their cut
+    batches on a fake (1, 1) mesh: the per-device totals 12b holds the
+    card's peak to."""
+    import torch
+    t0, pool, futures, futures_1x1, ended = started
+    with pool:
         found = [f.result()[0] for f in futures]
+        found_1x1 = {name: f.result() for name, f in futures_1x1.items()}
+        held = torch.cuda.mem_get_info()[0]
+    log(f"[12a dryrun] the last trace ended {max(ended) - t0:.1f} s after "
+        f"the pool started, collected after {time.monotonic() - t0:.1f} s; "
+        f"ending the pool freed "
+        f"{(torch.cuda.mem_get_info()[0] - held) / 1e9:.2f} GB of the card")
     recs = []
     for (arch, shape, _), rec in zip(DRYRUN_COMBOS, found):
         if rec["status"] != "ok":
@@ -2387,24 +2842,16 @@ def phase_dryrun(torch) -> dict:
             f"{rec['bottleneck']}; traced in {rec['compile_s']} s")
         recs.append(rec)
     predicted = {}
-    from torch.distributed.device_mesh import init_device_mesh
-    with dryrun.fake_world(1):
-        mesh = init_device_mesh(dryrun.mesh_device(), (1, 1),
-                                mesh_dim_names=("data", "model"))
-        for name, batch in SHARDED_BATCH.items():
-            base = SHAPES[name]
-            rec = dryrun.run_one(
-                "qwen3-8b", name, False, verbose=False, mesh=mesh,
-                cfg=get_config("qwen3-8b"),
-                shape=ShapeSpec(name, base.kind, base.seq_len, batch))
-            if rec["status"] != "ok":
-                raise AssertionError(f"[12a dryrun] qwen3-8b {name} 1x1: "
-                                     f"{rec.get('error')}")
-            predicted[name] = rec
-            log(f"[12a dryrun] qwen3-8b {name} batch {batch} 1x1: "
-                f"{rec['mem_per_device'] / 1e9:.3f} GB "
-                f"({json.dumps(rec['mem_bytes'])})")
-    log(f"[12a dryrun] {time.monotonic() - t0:.1f} s")
+    for name, batch in SHARDED_BATCH.items():
+        rec = found_1x1[name]
+        if rec["status"] != "ok":
+            raise AssertionError(f"[12a dryrun] qwen3-8b {name} 1x1: "
+                                 f"{rec.get('error')}")
+        predicted[name] = rec
+        log(f"[12a dryrun] qwen3-8b {name} batch {batch} 1x1: "
+            f"{rec['mem_per_device'] / 1e9:.3f} GB "
+            f"({json.dumps(rec['mem_bytes'])}); traced in "
+            f"{rec['compile_s']} s")
     return {"records": recs, "predicted": predicted,
             "seconds": time.monotonic() - t0}
 
@@ -2532,6 +2979,9 @@ def phase_sharded(torch, smi: str, seed: int, predicted: dict) -> dict:
 # ladder lends KVC, swaps to the host and recomputes
 OPT_KVC = 4096
 OPT_RL_ACCURACY = 0.5
+# 13b's depth, of opt-13b's 40: the script's time limit (the ladder's
+# decisions are the host's and take no account of depth)
+PRESSURE_LAYERS = 10
 
 
 def _pressure_workload(cfg, seed: int):
@@ -2574,7 +3024,7 @@ def phase_serve(torch, smi: str, cfg, tag: str, seed: int) -> tuple:
     params = eng.params
     del eng
     res["profile"] = p = phase_profile(torch, cfg, params, seed,
-                                       res["wall_s"], tag.split()[0], L)
+                                       tag.split()[0], L)
     log(f"[{tag}] {smi}: {res['tok_per_s']:.2f} tokens/s, device busy "
         f"{p['device_busy_s']} s, idle share {p['idle_share']}, decode "
         f"device ms/iter {p['decode_device_ms_per_iter']}, prefill device "
@@ -2700,15 +3150,18 @@ def phase_opt_pressure(torch, cfg, params, seed: int, tag: str) -> tuple:
 
 
 def phase_13(torch, smi: str, seed: int) -> dict:
-    """13a, then 13b on 13a's weights, then 13c."""
+    """13a, then 13b on 13a's weights cut to their first
+    ``PRESSURE_LAYERS`` layers, then 13c."""
     from repro_torch.configs import get_config
     t0 = time.monotonic()
     opt, params = phase_serve(torch, smi, get_config("opt_13b"), "13a opt",
                               seed)
     torch.cuda.empty_cache()
-    opt["pressure"], _ = phase_opt_pressure(
-        torch, get_config("opt_13b"), params, seed, "13b pressure")
-    del params
+    cfg, cut = _cut_depth(get_config("opt_13b"), params, PRESSURE_LAYERS)
+    opt["pressure"], _ = phase_opt_pressure(torch, cfg, cut, seed,
+                                            "13b pressure")
+    opt["pressure"]["layers"] = PRESSURE_LAYERS
+    del params, cut
     torch.cuda.empty_cache()
     opt["parity"] = phase_opt_parity(torch, seed)
     log(f"[13 opt] phase 13 took {time.monotonic() - t0:.1f}s")
@@ -2945,34 +3398,49 @@ def main(argv=None) -> int:
     lap("8a")
     moe["parity"] = phase_moe_parity(torch, args.seed)
     lap("8b")
-    ring = phase_ring(torch, smi, args.seed)
-    lap("9a")
-    ring["parity"] = phase_ring_parity(torch, args.seed)
-    lap("9b")
-    phase_embeds(torch, args.seed)
-    lap("10")
-    phase_train(torch, smi, args.seed)
-    lap("11a")
-    phase_train_parity(torch, args.seed)
-    lap("11b")
-    dry = phase_dryrun(torch)
-    lap("12a")
-    sharded = phase_sharded(torch, smi, args.seed, dry["predicted"])
-    lap("12b")
-    opt = phase_13(torch, smi, args.seed)
-    lap("13")
-    phase_parity_14(torch, args.seed)
-    lap("14c")
-    stablelm, params = phase_serve(torch, smi, get_config("stablelm_12b"),
-                                   "14a stablelm", args.seed)
-    del params
-    lap("14a")
-    deepseek = phase_deepseek(torch, smi, args.seed)
-    lap("14b")
-    music = phase_musicgen(torch, smi, args.seed)
-    lap("14d")
+    moe_wide = phase_moe_wide(torch, smi, args.seed)
+    lap("8c")
+    moe_wide["parity"] = phase_moe_drops_parity(torch, args.seed)
+    lap("8d")
+    # 12a's host traces, beside phases 9-11: its processes hold a CUDA
+    # context each, which 8c's depth fit would count as taken
+    started = start_dryrun()
+    try:
+        ring = phase_ring(torch, smi, args.seed)
+        lap("9a")
+        ring["parity"] = phase_ring_parity(torch, args.seed)
+        lap("9b")
+        phase_embeds(torch, args.seed)
+        lap("10")
+        phase_train(torch, smi, args.seed)
+        lap("11a")
+        phase_train_parity(torch, args.seed)
+        lap("11b")
+        dry = phase_dryrun(started)
+        lap("12a")
+        sharded = phase_sharded(torch, smi, args.seed, dry["predicted"])
+        lap("12b")
+        opt = phase_13(torch, smi, args.seed)
+        lap("13")
+        phase_parity_14(torch, args.seed)
+        lap("14c")
+        stablelm, params = phase_serve(torch, smi, get_config("stablelm_12b"),
+                                       "14a stablelm", args.seed)
+        del params
+        lap("14a")
+        deepseek = phase_deepseek(torch, smi, args.seed)
+        lap("14b")
+        music = phase_musicgen(torch, smi, args.seed)
+        lap("14d")
+        phase_train_others(torch, smi, args.seed)
+        lap("15a-c")
+        phase_grad_others(torch, args.seed)
+        lap("15d")
+    finally:
+        stop_dryrun(started)
     serving = {"4": main["launches"], "6": fleet["launches"],
                "7a": zamba["launches"], "8a": moe["launches"],
+               "8c": moe_wide["launches"],
                "9a": ring["launches"], "12b": sharded["launches"],
                "13a": opt["launches"], "13b": opt["pressure"]["launches"],
                "14a": stablelm["launches"], "14b": deepseek["launches"],

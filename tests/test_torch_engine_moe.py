@@ -20,6 +20,7 @@ import jax  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import model, moe  # noqa: E402
 from repro_torch.models.weights import params_from_jax  # noqa: E402
 
 from test_torch_cluster import Backend, _disagg, assert_parity  # noqa: E402
@@ -128,3 +129,66 @@ def test_moe_fleet_kv_migration_matches_jax():
     c = s["counters"]
     assert s["conservation"]["ok"] and c["n_migrations"] == 6
     assert c["n_kv_fallbacks"] == 0
+
+
+MB = 16     # decode calls of 16 rows: the capacity of 8 an expert binds
+
+
+def _wide_workload(G, S, vocab):
+    """18 greedy requests of 20-60 prompt tokens (so that no prefill call
+    is as short as a decode call) and 12-24 outputs: 16 rows decode
+    together."""
+    rng = np.random.default_rng(23)
+    return [G(prompt=[int(t) for t in rng.integers(
+        0, vocab, int(rng.integers(20, 61)))],
+        params=S(max_new_tokens=int(rng.integers(12, 25))))
+        for _ in range(18)]
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("ecfg", [None, LEGACY], ids=["megastep", "legacy"])
+def test_moe_decode_drops_like_the_reference(ecfg, one_thread, monkeypatch):
+    """``max_batch=16`` at ``capacity_factor=0.5``: a decode call routes
+    16 tokens (inactive rows too, as the reference's) to 2 of 4 experts
+    with ``capacity(16) = 8`` slots each, so an expert chosen by more than
+    8 rows drops the rest. The streams, completion times, decisions and
+    counters equal the reference engine's, under megastep windows and
+    under the legacy sync decode; 16 rows decoded together, and decode
+    calls did drop."""
+    drops, in_decode, widest = [], [], [0]
+    route, decode_step = moe._route, model.decode_step
+
+    def decoding(*a, **kw):
+        widest[0] = max(widest[0], int(kw["active"].sum()))
+        in_decode.append(True)
+        try:
+            return decode_step(*a, **kw)
+        finally:
+            in_decode.pop()
+
+    def counted(xf, router, k, E, Cl):
+        out = route(xf, router, k, E, Cl)
+        if in_decode:
+            assert xf.shape[0] * xf.shape[1] == MB
+            drops.append(int((~out[3]).sum()))
+        return out
+
+    monkeypatch.setattr(model, "decode_step", decoding)
+    monkeypatch.setattr(moe, "_route", counted)
+    scfg = dict(kvc_tokens=MB * 128, block_size=16, tfs=256,
+                max_model_len=128, max_batch_reqs=MB)
+    pair = _run_pair(_cfgs(capacity_factor=0.5), _wide_workload, ecfg=ecfg,
+                     scfg=scfg, mb=MB, cap=128)
+    eng = _equal(pair)
+    assert moe.capacity(eng.cfg, MB) == 8 and widest[0] == MB
+    assert drops and sum(drops) > 0, drops
+    assert len(drops) == eng.decode_iters * eng.cfg.num_layers
+    if ecfg is None:
+        assert eng.n_mega_windows > 0

@@ -463,6 +463,68 @@ def test_flash_wgmma_tile_edges(card, dtype, block_q, monkeypatch):
     assert flash_attention.launches == before + len(cases)
 
 
+def test_moe_engine_that_drops_at_decode_on_the_card_matches_the_cpu(card):
+    """phi3.5-MoE reduced at ``capacity_factor=0.5`` and ``max_batch=16``
+    (chip-smoke phase 8d at a small size), float32, TF32 off: a decode
+    call routes 16 rows to 2 of 4 experts with 8 slots each, so decode
+    calls drop. The card's engine gives the CPU engine's greedy streams,
+    completion times and counters on the same weights, and each decode
+    call drops as many assignments on both."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import model, moe
+    from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
+    cfg = get_config("phi3_5_moe_42b").reduced().with_(
+        dtype="float32", param_dtype="float32", capacity_factor=0.5)
+    scfg = dict(kvc_tokens=16 * 128, block_size=16, tfs=256,
+                max_model_len=128, max_batch_reqs=16)
+    route, decode_step = moe._route, model.decode_step
+
+    def run(device, params=None):
+        drops, in_decode = [], []
+
+        def decoding(*a, **kw):
+            in_decode.append(True)
+            try:
+                return decode_step(*a, **kw)
+            finally:
+                in_decode.pop()
+
+        def counted(xf, router, k, E, Cl):
+            out = route(xf, router, k, E, Cl)
+            if in_decode:
+                drops.append((~out[3]).sum())
+            return out
+
+        eng = ServingEngine(cfg, params, max_batch=16, capacity=128,
+                            rl_accuracy=1.0, device=device,
+                            scheduler_cfg=SchedulerConfig(**scfg))
+        rng = np.random.default_rng(23)
+        reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, int(rng.integers(20, 61)))],
+            params=SamplingParams(max_new_tokens=int(rng.integers(12, 25))))
+            for _ in range(18)]
+        moe._route, model.decode_step = counted, decoding
+        try:
+            eng.run(reqs)
+        finally:
+            moe._route, model.decode_step = route, decode_step
+        return eng, [(g.output, g.t_done) for g in reqs], \
+            torch.stack(drops).cpu().tolist()
+
+    paged_decode_attention.launches = 0
+    gpu, got, got_drops = run("cuda")
+    assert paged_decode_attention.launches == cfg.num_layers * \
+        gpu.decode_iters
+    cpu, want, want_drops = run("cpu", {k: t.cpu()
+                                        for k, t in gpu.params.items()})
+    assert got == want
+    assert gpu.sync_counts == cpu.sync_counts
+    assert got_drops == want_drops and sum(got_drops) > 0
+
+
+
 # --------------------------------------------------------------------- #
 # KV migration and the fleet on the card
 # --------------------------------------------------------------------- #
@@ -591,3 +653,34 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     for k, p in cpu.items():
         assert float((gpu[k].detach().cpu() - p.detach()).abs().max()) \
             <= 1e-5, k
+
+
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "zamba2_7b",
+                                  "xlstm_125m"])
+def test_other_families_grad_step_on_the_card_matches_the_cpu(card, arch):
+    """Chip-smoke phase 15d at a small size: one float32 grad step (TF32
+    off, remat) of reduced phi3.5-MoE at ``capacity_factor=0.5`` (the
+    backward through dropped assignments), zamba2 (the SSD chunk scan and
+    the shared block) and xlstm (the sLSTM's per-token loop) on the card
+    and on the CPU from the same weights and batch: the loss to 1e-5
+    relative and every grad to 1e-4 * max|g| per leaf. The AdamW update is
+    the same code for every family, and the qwen3 test above holds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.train_loop import batch_to, make_grad_fn
+    cfg = get_config(arch).reduced(layers=4).with_(
+        dtype="float32", param_dtype="float32", remat=True)
+    if cfg.is_moe:
+        cfg = cfg.with_(capacity_factor=0.5)
+    cpu = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = {k: p.cuda() for k, p in cpu.items()}
+    batch = next(SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, batch_size=2)).batches())
+    want_loss, _, want = make_grad_fn(cfg)(cpu, batch_to(batch, cfg, "cpu"))
+    got_loss, _, got = make_grad_fn(cfg)(gpu, batch_to(batch, cfg, "cuda"))
+    assert abs(float(got_loss) - float(want_loss)) \
+        <= 1e-5 * abs(float(want_loss))
+    for k, g in want.items():
+        tol = 1e-4 * float(g.abs().max())
+        assert float((got[k].cpu() - g).abs().max()) <= tol, k

@@ -26,14 +26,15 @@ SMEM_SM = 233472
 HEAD_DIMS = pa._HEAD_DIMS
 # (batch, heads, kv heads, hd, capacity): full 8192-slot rings
 # (mistral-nemo), qwen3's decode_32k, the engine's (8, 2048) rows, zamba2,
-# and the engine's rows of deepseek-coder-33b (G = 7), stablelm-12b (hd
-# 160) and musicgen-large (MHA at hd 64)
+# the engine's rows of deepseek-coder-33b (G = 7), stablelm-12b (hd 160)
+# and musicgen-large (MHA at hd 64), and phi3.5-MoE's 32 rows of 2048
+# slots (``max_batch=32``: one split a row)
 SERVING = [(4, 32, 8, 128, 8192), (8, 32, 8, 128, 32768),
            (8, 32, 8, 128, 2048), (8, 32, 32, 112, 2048),
            (8, 56, 8, 128, 2048), (8, 32, 8, 160, 2048),
-           (8, 32, 32, 64, 2048)]
+           (8, 32, 32, 64, 2048), (32, 32, 8, 128, 2048)]
 SERVING_IDS = ["rings", "decode_32k", "rows_2048", "zamba2", "deepseek",
-               "stablelm", "musicgen"]
+               "stablelm", "musicgen", "moe_b32"]
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
@@ -154,7 +155,7 @@ def test_serving_splits():
              pa.plan(B, H, K, hd, c, c)["split"])
             for B, H, K, hd, c in SERVING] == [(8, 1024), (4, 8192), (4, 512),
                                               (1, 2048), (4, 512), (4, 512),
-                                              (1, 2048)]
+                                              (1, 2048), (1, 2048)]
 
 
 @pytest.mark.parametrize("shape", SERVING, ids=SERVING_IDS)
@@ -167,7 +168,8 @@ def test_serving_stages_shared_memory_and_group(shape):
     want = {"rings": (3, 102960, 4), "decode_32k": (3, 102960, 4),
             "rows_2048": (3, 102960, 4), "zamba2": (3, 102960, 4),
             "deepseek": (3, 103984, 8), "stablelm": (2, 103968, 4),
-            "musicgen": (4, 69184, 4)}[SERVING_IDS[SERVING.index(shape)]]
+            "musicgen": (4, 69184, 4), "moe_b32": (3, 102960, 4)}[
+        SERVING_IDS[SERVING.index(shape)]]
     assert (p["stages"], p["smem"], p["group"]) == want
     assert p["smem"] == pa.smem_bytes(hd, H // K, p["stages"])
     assert p["copy"] == "tma" and p["box"] == p["tile"]

@@ -16,10 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.training import train_loop as jtrain  # noqa: E402
 from repro.training.data import DataConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import attention, model  # noqa: E402
+from repro_torch.models import attention, model, moe  # noqa: E402
 from repro_torch.models.weights import (params_from_jax,  # noqa: E402
                                         params_to_jax)
 from repro_torch.training import train_loop  # noqa: E402
@@ -84,15 +85,41 @@ def assert_close(ref, got):
         assert err <= tol, (k, err, tol)
 
 
-# dense GQA, MoE (aux nonzero), frontend embeds, a sliding window (64)
-@pytest.mark.parametrize("arch", ["qwen3_8b", "phi3_5_moe_42b",
-                                  "phi3_vision_4_2b", "mistral_nemo_12b"])
-def test_loss_aux_and_every_grad_match_the_reference(arch):
+# dense GQA, MoE (aux nonzero), frontend embeds, a sliding window (64),
+# and MoE at capacity factor 0.5, where the reference's router sends more
+# of the 192 tokens' assignments to an expert than its 48 slots in every
+# layer: the backward pass runs through dropped assignments (the
+# dispatch's cut-off column, the combine's zero rows)
+@pytest.mark.parametrize("arch,cf", [
+    ("qwen3_8b", None), ("phi3_5_moe_42b", None), ("phi3_vision_4_2b", None),
+    ("mistral_nemo_12b", None), ("phi3_5_moe_42b", 0.5)],
+    ids=["qwen3_8b", "phi3_5_moe_42b", "phi3_vision_4_2b",
+         "mistral_nemo_12b", "phi3_5_moe_42b-drops"])
+def test_loss_aux_and_every_grad_match_the_reference(arch, cf, monkeypatch):
     jcfg, cfg = cfgs(arch)
+    if cf is not None:
+        jcfg, cfg = jcfg.with_(capacity_factor=cf), cfg.with_(
+            capacity_factor=cf)
+    seen, apply = [], moe.moe_apply
+
+    def recorded(p, c, x, rows=None):
+        seen.append((p["router"].detach().numpy(), x.detach().numpy()))
+        return apply(p, c, x, rows)
+
+    monkeypatch.setattr(moe, "moe_apply", recorded)
     ref, got = both(jcfg, cfg, 2, 96)
     assert_close(ref, got)
     if cfg.is_moe:
         assert ref[1] > 0
+    if cf is not None:
+        from test_torch_moe import _expert_loads
+        C = jmoe.capacity(jcfg, 2 * 96)
+        assert C == moe.capacity(cfg, 2 * 96) == 48
+        assert len(seen) >= cfg.num_layers
+        for router, x in seen[:cfg.num_layers]:   # the forward's calls
+            loads = _expert_loads({"router": jnp.asarray(router)}, x,
+                                  cfg.experts_per_token)
+            assert loads.max() > C, loads
 
 
 def test_remat_changes_no_gradient():
