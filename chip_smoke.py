@@ -8,7 +8,9 @@ run qwen3-8b's sharded prefill_32k and decode_32k steps on a 1x1 mesh,
 serve opt-13b (the serving launcher's default model) at full width and
 depth, under KV pressure too, serve stablelm-12b, deepseek-coder-33b and
 musicgen-large at full width and depth, with musicgen's audio frontend,
-and train phi3.5-MoE, zamba2-7b and xlstm-125m at full width.
+train phi3.5-MoE, zamba2-7b, xlstm-125m, phi3-vision-4.2b (over its
+frontend's embeddings) and mistral-nemo-12b (under its 8192 window) at
+full width, and serve arctic-480b at full width.
 
     python3 chip_smoke.py [--seed N]      # one GPU
     python3 chip_smoke.py --profile-src OTHER_CHECKOUT/src   # phase 4 only
@@ -212,11 +214,31 @@ Phases (any failure raises and exits non-zero):
         step;
      d. one float32 grad step at S = 512 on the card and on the CPU of
         phi3.5-MoE at 1 layer (dropping), zamba2-7b at 6 (one shared
-        invocation) and xlstm-125m at 12: the loss and every grad, as 11b.
+        invocation), xlstm-125m at 12, phi3-vision at 2 over its 1024
+        frontend embeddings and mistral-nemo at 2 under a window of 256
+        (which binds at S = 512): the loss and every grad, as 11b;
+     e. phi3-vision-4.2b at its 32 layers (3.82B params), batch 1 x (1024
+        frontend embeddings + 3072 tokens), 8 steps, as a-c;
+     f. mistral-nemo-12b under phase 9a's 8192 window at S = 10240 (the
+        window binds), cut to ``NEMO_TRAIN_LAYERS`` of 40 layers, 8 steps,
+        as a-c.
+ 16. arctic-480b (128 experts of 4864, top-2, a dense residual FFN beside
+     them; 56 heads over 8 of 128, G = 7):
+     a. at its published widths, bf16, at the depth ``_fit_depth`` finds
+        room for (2 of 35 layers: a layer is 27.22 GB), on phase 4's
+        settings and workload with phase 4's gates, each decode call's
+        count of experts that kept a token (on the device, read once)
+        beside the 128 it reads, then the profiled run as 8a's;
+     b. reduced (2 layers, d 256), float32, TF32 off, capacity factor 0.5,
+        max_batch 16, 18 greedy requests of 20-60 + 12-24 tokens: the
+        card's engine equals the CPU's as 8d's (streams up to float32
+        ties, decisions, ``sync_counts``, each decode call's drops) at 4
+        experts, where decode calls drop while some rows idle, and at
+        128 experts.
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
-7a, 8a, 8c, 9a, 13a, 13b, 14a, 14b and 14d and the sharded steps of 12b; the
-top-level times are the zamba2 shapes, every timed shape under
+7a, 8a, 8c, 9a, 13a, 13b, 14a, 14b, 14d and 16a and the sharded steps of
+12b; the top-level times are the zamba2 shapes, every timed shape under
 ``shapes``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2140,10 +2162,13 @@ def phase_moe_parity(torch, seed: int) -> dict:
 
 
 @contextlib.contextmanager
-def _route_drops(when):
+def _route_drops(when, experts=None):
     """While open, ``moe._route`` appends each call's dropped assignments,
     ``(~keep).sum()`` (a device tensor: no host sync), to the yielded list
-    when ``when(list)`` holds."""
+    when ``when(list)`` holds; and, given a list ``experts``, the call's
+    count of experts that kept at least one assignment (also a device
+    tensor) to it."""
+    import torch.nn.functional as F
     from repro_torch.models import moe
     drops, route = [], moe._route
 
@@ -2151,6 +2176,10 @@ def _route_drops(when):
         out = route(*a)
         if when(drops):
             drops.append((~out[3]).sum())
+            if experts is not None:
+                e_flat, keep, E = out[1], out[3], a[3]
+                hit = F.one_hot(e_flat, E).bool() & keep[..., None]
+                experts.append(hit.any(1).sum())
         return out
 
     moe._route = counted
@@ -2168,10 +2197,11 @@ def _moe_decode_drops():
     requests of each decode iteration on the host. Yields {"drops": [...],
     "iters": [[rid, ...], ...]}, which the caller reads once at the end.
     Decode calls run in iteration order, ``depth`` of them an
-    iteration."""
+    iteration. The dict's "experts" holds each decode call's count of
+    experts that kept an assignment (``_route_drops``)."""
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
-    iters, depth = [], [0]
+    iters, depth, experts = [], [0], []
     step, decode = model.decode_step, ServingEngine._run_decode_async
 
     def decoding(*a, **kw):
@@ -2188,8 +2218,8 @@ def _moe_decode_drops():
 
     model.decode_step, ServingEngine._run_decode_async = decoding, run_decode
     try:
-        with _route_drops(lambda _: depth[0] > 0) as drops:
-            yield {"drops": drops, "iters": iters}
+        with _route_drops(lambda _: depth[0] > 0, experts) as drops:
+            yield {"drops": drops, "iters": iters, "experts": experts}
     finally:
         model.decode_step, ServingEngine._run_decode_async = step, decode
 
@@ -2211,8 +2241,8 @@ def phase_moe_wide(torch, smi: str, seed: int) -> dict:
     L = cfg.num_layers
     with _moe_decode_drops() as rec:
         def clear():
-            rec["drops"].clear()
-            rec["iters"].clear()
+            for v in rec.values():
+                v.clear()
         res, eng = _serve_full(torch, smi, cfg, "8c moe",
                                _workload(cfg, seed, 48), on_start=clear,
                                max_batch=MOE_ROWS, capacity=2048, seed=seed)
@@ -2275,51 +2305,52 @@ def _decisions(eng, reqs) -> tuple:
             eng.n_prefill_waves, eng.n_chunk_calls, eng.n_prefill_chunks)
 
 
-def phase_moe_drops_parity(torch, seed: int) -> dict:
-    """8d: phi3.5-MoE reduced to 4 layers and 16 experts (capacity factor
-    1.25, top-2), float32, TF32 off, ``max_batch`` 32, capacity 512,
-    default scheduler, on ``_drop_workload``: the engine on the card and on
-    the CPU, from the same weights, give the same completion times,
-    scheduler decisions, ``sync_counts`` and counters, the same greedy
-    streams, and the same dropped assignments in each decode call (more
-    than 0 in all). A stream may part from the CPU's only at a float32 tie
+def _drops_parity(torch, seed: int, cfg, tag: str, rows: int,
+                  capacity: int, workload, scfg=None,
+                  must_drop: bool = True) -> dict:
+    """The engine of ``cfg`` (float32, TF32 off) at ``max_batch`` ``rows``
+    on ``workload(cfg, seed)``, on the card and on the CPU from the same
+    weights: the same completion times, scheduler decisions,
+    ``sync_counts`` and counters, the same greedy streams, and the same
+    dropped assignments in each decode call (more than 0 in all, with
+    ``must_drop``). A stream may part from the CPU's only at a float32 tie
     of its top-2 logits (``_tie_checked``); the drops of later decode
     calls then see other tokens, so with a parted stream they are held
     equal up to the first decode call that is fed a parted token (and may
     differ from there on). A parting where the logits do not tie (a router
     choice that flipped, say) fails."""
     import types
-    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("phi3_5_moe_42b").reduced(layers=4, experts=16).with_(
-        dtype="float32", param_dtype="float32")
     L = cfg.num_layers
     t0 = time.monotonic()
 
     def run(device, params=None):
         t = time.monotonic()
         with _moe_decode_drops() as rec:
-            eng = ServingEngine(cfg, params, max_batch=MOE_ROWS,
-                                capacity=512, seed=seed, device=device)
-            reqs = _drop_workload(cfg, seed)
+            eng = ServingEngine(
+                cfg, params, max_batch=rows, capacity=capacity, seed=seed,
+                device=device,
+                scheduler_cfg=SchedulerConfig(**scfg) if scfg else None)
+            reqs = workload(cfg, seed)
             eng.run(reqs)
         drops = torch.stack(rec["drops"]).cpu().tolist()
         return eng, reqs, drops, rec["iters"], time.monotonic() - t
 
     _zero_launches()
     card, got, card_drops, iters, card_s = run("cuda")
-    launches = _read_launches("8d", L, card.decode_iters)
+    launches = _read_launches(tag, L, card.decode_iters)
     cpu, want, cpu_drops, _, cpu_s = run(
         "cpu", {k: v.cpu() for k, v in card.params.items()})
     if _decisions(card, got) != _decisions(cpu, want):
-        raise AssertionError(f"[8d] the card's decisions or counters differ "
-                             f"from the CPU's: {_decisions(card, got)} != "
-                             f"{_decisions(cpu, want)}")
+        raise AssertionError(f"[{tag}] the card's decisions or counters "
+                             f"differ from the CPU's: {_decisions(card, got)}"
+                             f" != {_decisions(cpu, want)}")
     ties = [_tie_checked(torch, model, cfg, card.params, g.rid, g,
-                         types.SimpleNamespace(output=w.output), "8d")
+                         types.SimpleNamespace(output=w.output), tag)
             for g, w in zip(got, want) if g.output != w.output]
     first = next((i for i, (a, b) in enumerate(zip(card_drops, cpu_drops))
                   if a != b), None)
@@ -2327,26 +2358,40 @@ def phase_moe_drops_parity(torch, seed: int) -> dict:
     # token j is fed to its j-th decode iteration
     fed = min((L * [i for i, rids in enumerate(iters) if t["request"] in
                     rids][t["token"]] for t in ties), default=None)
-    if len(card_drops) != len(cpu_drops) or sum(card_drops) <= 0 or (
-            first is not None and (fed is None or first < fed)):
-        raise AssertionError(f"[8d] decode drops: card {sum(card_drops)} in "
-                             f"{len(card_drops)} calls, CPU "
+    if len(card_drops) != len(cpu_drops) or len(card_drops) != \
+            L * card.decode_iters or (must_drop and sum(card_drops) <= 0) \
+            or (first is not None and (fed is None or first < fed)):
+        raise AssertionError(f"[{tag}] decode drops: card {sum(card_drops)}"
+                             f" in {len(card_drops)} calls, CPU "
                              f"{sum(cpu_drops)} in {len(cpu_drops)}, first "
                              f"differing call {first}, first call fed a "
                              f"parted token {fed}")
-    res = {"layers": L, "experts": cfg.num_experts,
+    res = {"arch": cfg.name, "layers": L, "experts": cfg.num_experts,
+           "capacity_factor": cfg.capacity_factor, "rows": rows,
            "requests": len(got), "decode_iters": card.decode_iters,
            "widest_decode_batch": max(map(len, iters)),
+           "decode_iters_with_idle_rows": sum(len(r) < rows for r in iters),
            "decode_calls": len(card_drops),
            "decode_drops": sum(card_drops),
            "decode_calls_that_drop": sum(d > 0 for d in card_drops),
            "first_differing_call": first, "ties": ties,
            "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
            "seconds": time.monotonic() - t0}
-    log(f"[8d moe drops] card equals CPU (streams, decisions, sync_counts, "
+    log(f"[{tag}] card equals CPU (streams, decisions, sync_counts, "
         f"drops per decode call): {json.dumps(res)}")
     del card, cpu
     return res
+
+
+def phase_moe_drops_parity(torch, seed: int) -> dict:
+    """8d: phi3.5-MoE reduced to 4 layers and 16 experts (capacity factor
+    1.25, top-2), float32, ``max_batch`` 32, capacity 512, default
+    scheduler, on ``_drop_workload``, through ``_drops_parity``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("phi3_5_moe_42b").reduced(layers=4, experts=16).with_(
+        dtype="float32", param_dtype="float32")
+    return _drops_parity(torch, seed, cfg, "8d moe drops", MOE_ROWS, 512,
+                         _drop_workload)
 
 
 def _ring_workload(cfg, seed: int):
@@ -2466,20 +2511,39 @@ def phase_embeds(torch, seed: int, arch: str = "phi3_vision_4_2b",
 # the script's time limit); the steps that the loss gate averages at each
 # end, and that the median step leaves out
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_AVG = 12, 4096, 12, 4
-# phase 15a-c: (arch, layers kept of the published depth, batch, tokens)
-TRAIN_15 = (("phi3_5_moe_42b", 3, 1, 4096), ("zamba2_7b", 24, 1, 4096),
-            ("xlstm_125m", 12, 8, 512))
-# phase 15d: (arch, layers) of one float32 grad step at S = 512
-GRAD_15 = (("phi3_5_moe_42b", 1), ("zamba2_7b", 6), ("xlstm_125m", 12))
+# phase 15a-c: (arch, layers kept of the published depth, batch, tokens,
+# config overrides)
+TRAIN_15 = (("phi3_5_moe_42b", 3, 1, 4096, {}),
+            ("zamba2_7b", 24, 1, 4096, {}), ("xlstm_125m", 12, 8, 512, {}))
+# phase 15e-f, ``TRAIN_15EF_STEPS`` steps each: phi3-vision at its full
+# depth over 1024 frontend embeddings and 3072 tokens, and mistral-nemo
+# under phase 9a's window at S = 10240 (so that the window binds), cut to
+# ``NEMO_TRAIN_LAYERS`` of 40 for the script's time limit
+NEMO_TRAIN_LAYERS = 2
+TRAIN_15EF_STEPS = 8
+TRAIN_15EF = (("phi3_vision_4_2b", 32, 1, 3072, {}),
+              ("mistral_nemo_12b", NEMO_TRAIN_LAYERS, 1, 10240,
+               {"sliding_window": WINDOW}))
+# phase 15d: (arch, layers, config overrides) of one float32 grad step at
+# S = 512 (phi3-vision's over its 1024 frontend embeddings too;
+# mistral-nemo's under a window of 256, which binds there)
+GRAD_15 = (("phi3_5_moe_42b", 1, {}), ("zamba2_7b", 6, {}),
+           ("xlstm_125m", 12, {}), ("phi3_vision_4_2b", 2, {}),
+           ("mistral_nemo_12b", 2, {"sliding_window": 256}))
 
 
-def _train_cfg(arch: str, layers: int):
+def _train_cfg(arch: str, layers: int, over=None):
     """``arch`` at its published widths cut to its first ``layers``
-    layers (a hybrid's pattern and shared-block invocations cut with it)."""
+    layers (a hybrid's pattern and shared-block invocations cut with it),
+    with ``over``'s fields set."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     pat = cfg.layer_pattern[:layers] if cfg.layer_pattern else None
-    return cfg.with_(num_layers=layers, layer_pattern=pat)
+    return cfg.with_(num_layers=layers, layer_pattern=pat, **(over or {}))
+
+
+def _frontend(cfg) -> int:
+    return cfg.frontend_tokens if cfg.frontend else 0
 
 
 def _token_matmul_params(cfg, params) -> tuple:
@@ -2504,23 +2568,28 @@ def _token_matmul_params(cfg, params) -> tuple:
 
 
 def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
-                batch: int = 1, seq: int = TRAIN_SEQ) -> dict:
+                batch: int = 1, seq: int = TRAIN_SEQ,
+                steps: int = TRAIN_STEPS) -> dict:
     """Training at published widths through
     ``repro_torch.training.train_loop.train`` on ``SyntheticDataset(seed)``:
     11a, qwen3-8b cut to 12 of 36 layers, at batch 1 and S = 4096 (the
     streaming flash attention); or ``cfg`` (15a-c: phi3.5-MoE, zamba2-7b,
-    xlstm-125m) at ``batch`` x ``seq``; ``TRAIN_STEPS`` steps. bf16
+    xlstm-125m; 15e-f: phi3-vision, mistral-nemo) at ``batch`` x ``seq``
+    tokens, after the frontend's embeddings where ``cfg`` has a frontend;
+    ``steps`` steps. bf16
     params, float32 AdamW moments, remat. The loss must fall (the mean of
     the last ``TRAIN_AVG`` below that of the first) and stay finite.
-    Prints the median step ms from step ``TRAIN_AVG`` on, tokens/s,
+    Prints the median step ms from step ``TRAIN_AVG`` on, positions/s
+    (tokens and frontend embeddings, as "tokens_per_s"),
     peak memory and the model-FLOPs share of the bf16 peak (6 x the matmul
-    weights a token passes through x the tokens, plus the causal
-    attention's 6 L H hd S^2 B; the remat recompute, the SSD's chunk scan
+    weights a position passes through x the positions, plus the causal
+    attention's 6 L H hd P^2 B over P positions, not cut by a window; the
+    remat recompute, the SSD's chunk scan
     and the xLSTM cells are not counted); for a MoE also the expert FLOPs
     that the (E, C, d) buffer executes, the aux loss and the dropped share
     of the first step's forward; then one more step under
-    ``torch.profiler``: device busy, its idle share against the median
-    step, the GEMMs' share and the launches."""
+    ``torch.profiler``, recording device activity: device busy, its idle
+    share against the median step, the GEMMs' share and the launches."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -2530,9 +2599,14 @@ def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
     if cfg is None:
         cfg = get_config("qwen3_8b").with_(num_layers=TRAIN_LAYERS)
     opt = AdamWConfig(lr=3e-4, warmup_steps=5)
+    F = _frontend(cfg)
     log(f"[{tag} train] {cfg.name} full width, {cfg.num_layers} layers, "
         f"params {cfg.param_dtype}, moments {opt.state_dtype}, remat "
-        f"{cfg.remat}, batch {batch} x {seq} tokens, {TRAIN_STEPS} steps")
+        f"{cfg.remat}, batch {batch} x "
+        + (f"({F} frontend embeddings + {seq} tokens)" if F else
+           f"{seq} tokens")
+        + (f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+        + f", {steps} steps")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stamps, losses, auxes = [], [], []
@@ -2549,7 +2623,7 @@ def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
     with _route_drops(lambda d: not losses and len(d) < cfg.num_layers) \
             as drops:
         params, state, _ = train_loop.train(
-            cfg, TRAIN_STEPS, opt=opt, batch_size=batch, seq_len=seq,
+            cfg, steps, opt=opt, batch_size=batch, seq_len=seq,
             seed=seed,
             log_every=1, callback=on_step, device="cuda")
     peak = torch.cuda.max_memory_allocated()
@@ -2562,11 +2636,13 @@ def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
                              f"{losses}")
     n_params = sum(p.numel() for p in params.values())
     n_matmul, n_attn = _token_matmul_params(cfg, params)
-    T = batch * seq
+    P = seq + F
+    T = batch * P
     flops = 6 * n_matmul * T + 6 * n_attn * cfg.num_heads \
-        * cfg.resolved_head_dim * seq * T
+        * cfg.resolved_head_dim * P * T
     res = {"card": smi, "arch": cfg.name, "layers": cfg.num_layers,
-           "batch": batch, "seq": seq, "params": n_params,
+           "batch": batch, "seq": seq, "frontend": F,
+           "window": cfg.sliding_window, "params": n_params,
            "matmul_params_a_token": n_matmul, "attention_layers": n_attn,
            "first_step_s_with_init": stamps[0] - t0,
            "median_step_ms": med_ms, "step_ms": step_ms,
@@ -2586,13 +2662,14 @@ def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
                    expert_flops_executed=6 * cfg.num_layers * E * C * expert)
     data = SyntheticDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
-        seed=seed + 1))
+        seed=seed + 1, frontend_tokens=F, d_model=cfg.d_model))
     step = train_loop.make_train_step(cfg, opt)
     b = train_loop.batch_to(next(data.batches()), cfg, "cuda")
     torch.cuda.synchronize()
     t1 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: every figure below comes from the kernels, and
+    # recording the host's ops cost 12.5 s more a step at 15e's 109k launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(params, state, b)
         torch.cuda.synchronize()
     res["profiled_step_ms"] = 1e3 * (time.monotonic() - t1)
@@ -2614,18 +2691,23 @@ def phase_train(torch, smi: str, seed: int, cfg=None, tag: str = "11a",
     return res
 
 
-def phase_train_others(torch, smi: str, seed: int) -> dict:
+def phase_train_others(torch, smi: str, seed: int, specs=TRAIN_15,
+                       tags: str = "abc", steps: int = TRAIN_STEPS) -> dict:
     """15a-c: ``phase_train`` on phi3.5-MoE (3 of 32 layers; capacity
     factor 1.25, so training drops), zamba2-7b (24 of 81 layers, four
     shared-block invocations: the streaming training attention at hd 112,
     G = 1) and xlstm-125m (all 12 layers, batch 8 x 512: the sLSTM's loop
     launches a step's kernels token by token), 12 steps each, the loss
-    over the first and last 4."""
+    over the first and last 4. 15e-f (``TRAIN_15EF``, tags "ef"):
+    phi3-vision at its 32 layers over 1024 frontend embeddings + 3072
+    tokens, and mistral-nemo at ``NEMO_TRAIN_LAYERS`` layers under the
+    8192 window at S = 10240 (the streaming training attention masks by
+    the window), ``TRAIN_15EF_STEPS`` steps each."""
     res = {}
-    for (arch, layers, batch, seq), tag in zip(TRAIN_15, "abc"):
+    for (arch, layers, batch, seq, over), tag in zip(specs, tags):
         t0 = time.monotonic()
-        r = phase_train(torch, smi, seed, _train_cfg(arch, layers),
-                        f"15{tag}", batch, seq)
+        r = phase_train(torch, smi, seed, _train_cfg(arch, layers, over),
+                        f"15{tag}", batch, seq, steps)
         gc.collect()
         torch.cuda.empty_cache()
         r["seconds"] = time.monotonic() - t0
@@ -2666,8 +2748,8 @@ def phase_train_parity(torch, seed: int, cfg=None, S: int = 2304,
     cfg = cfg.with_(dtype="float32", param_dtype="float32")
     opt = AdamWConfig(lr=3e-4, warmup_steps=5)
     batch = next(SyntheticDataset(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=S, batch_size=1,
-        seed=seed)).batches())
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=1, seed=seed,
+        frontend_tokens=_frontend(cfg), d_model=cfg.d_model)).batches())
     card = model.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
                       "cuda")
     cpu = {k: p.cpu() for k, p in card.items()}
@@ -2687,6 +2769,7 @@ def phase_train_parity(torch, seed: int, cfg=None, S: int = 2304,
     del g_gpu
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     res = {"arch": cfg.name, "layers": cfg.num_layers, "seq": S,
+           "frontend": _frontend(cfg), "window": cfg.sliding_window,
            "loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
            "grad_err_share_of_max": grad_err, "card_grad_s": t1 - t0,
            "cpu_grad_s": t2 - t1}
@@ -2714,10 +2797,13 @@ def phase_grad_others(torch, seed: int) -> dict:
     """15d: ``phase_train_parity``'s grad half at S = 512 on phi3.5-MoE at
     1 layer (capacity factor 1.25: its 80 slots an expert drop
     assignments, counted on the card's forward, more than 0), zamba2-7b at
-    6 layers (one shared-block invocation) and xlstm-125m at its 12."""
+    6 layers (one shared-block invocation), xlstm-125m at its 12,
+    phi3-vision at 2 over its 1024 frontend embeddings and mistral-nemo at
+    2 under a window of 256."""
     res = {}
-    for arch, layers in GRAD_15:
-        res[arch] = phase_train_parity(torch, seed, _train_cfg(arch, layers),
+    for arch, layers, over in GRAD_15:
+        res[arch] = phase_train_parity(torch, seed,
+                                       _train_cfg(arch, layers, over),
                                        512, "15d", update=False)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3340,6 +3426,121 @@ def phase_musicgen(torch, smi: str, seed: int) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: arctic-480b
+# --------------------------------------------------------------------------- #
+def phase_arctic(torch, smi: str, seed: int) -> dict:
+    """16a: arctic-480b at its published widths (d 7168, 56 heads over 8
+    of 128: G = 7, a dense residual FFN of 4864 beside 128 experts of
+    4864, top-2, capacity factor 1.25, vocab 32000), bf16, seeded random
+    weights, at the depth that ``_fit_depth`` finds room for (a layer is
+    27.22 GB), max_batch 8, capacity 2048, default EngineConfig, on phase
+    4's workload: phase 4's gates (every request complete, tokens in the
+    vocabulary, no blocking sync, flash a multiple of the depth, decode
+    depth x decode iterations, chunk calls, megastep windows); each decode
+    call's count of experts that kept a token (counted on the device by
+    ``_moe_decode_drops``, read once) beside the 128 whose weights the
+    call reads, and the least time a decode iteration can take: every
+    weight but the embedding table read once at ``PEAK_BYTES``; then the
+    profiled run as 8a's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = _fit_depth(torch, get_config("arctic_480b"), "16a arctic")
+    L, E = cfg.num_layers, cfg.num_experts
+    with _moe_decode_drops() as rec:
+        def clear():
+            for v in rec.values():
+                v.clear()
+        res, eng = _serve_full(torch, smi, cfg, "16a arctic",
+                               _workload(cfg, seed), on_start=clear,
+                               max_batch=8, capacity=2048, seed=seed)
+    hit = torch.stack(rec["experts"]).cpu().tolist()
+    drops = int(torch.stack(rec["drops"]).sum())
+    iters = eng.decode_iters
+    if eng.n_mega_windows <= 0 or eng.n_chunk_calls <= 0 or \
+            len(hit) != L * iters:
+        raise AssertionError(f"[16a] megastep windows {eng.n_mega_windows}, "
+                             f"chunk calls {eng.n_chunk_calls}, {len(hit)} "
+                             f"decode calls for {iters} iterations of {L} "
+                             f"layers")
+    read = _nbytes(eng.params) - _nbytes(eng.params["tok_embed"])
+    res.update(layers=L, experts=E, decode_capacity=moe.capacity(cfg, 8),
+               experts_hit_min=min(hit), experts_hit_max=max(hit),
+               experts_hit_mean=statistics.fmean(hit),
+               experts_hit_per_call=hit, decode_drops=drops,
+               weights_gb=_nbytes(eng.params) / 1e9,
+               expert_weights_gb=_nbytes({k: v for k, v in eng.params.items()
+                                          if k.startswith("moe.w_")}) / 1e9,
+               decode_read_gb=read / 1e9,
+               decode_floor_ms=read / PEAK_BYTES * 1e3,
+               caches_gb=_nbytes(eng.caches) / 1e9)
+    log(f"[16a arctic] {json.dumps(res)}")
+    params = eng.params
+    del eng
+    res["profile"] = p = phase_profile(torch, cfg, params, seed, "16a", L)
+    del params
+    log(f"[16a arctic] {smi}: {L} of 35 layers, {res['tok_per_s']:.2f} "
+        f"tokens/s, decode device ms/iter {p['decode_device_ms_per_iter']} "
+        f"(floor {res['decode_floor_ms']:.2f}: {res['decode_read_gb']:.2f} "
+        f"GB of weights at {PEAK_BYTES / 1e12} TB/s), prefill device "
+        f"ms/call {p['prefill_device_ms_per_call']}, MoE share of device "
+        f"time {p['moe_share_of_busy']}, aten launches/decode iter "
+        f"{p['aten_launches_per_decode_iter']}, idle share "
+        f"{p['idle_share']}, peak {res['peak_mem_gb']:.2f} GB (profiled "
+        f"{p['peak_mem_gb']:.2f}; weights {res['weights_gb']:.2f}), experts "
+        f"that kept a token in a decode call {min(hit)}-{max(hit)} (mean "
+        f"{res['experts_hit_mean']:.2f}) of the {E} each call reads, "
+        f"{drops} dropped decode assignments, attention launches "
+        f"{res['launches']}")
+    return res
+
+
+ARCTIC_ROWS = 16    # 16b: max_batch, where capacity(16) = 8 slots bind at
+                    # capacity factor 0.5 over 4 experts
+
+
+def _wide_workload(cfg, seed: int):
+    """16b: 18 greedy requests of 20-60 prompt tokens (no prefill call is
+    as short as a decode call) and 12-24 outputs, so that 16 rows decode
+    together and some rows idle while others run."""
+    import numpy as np
+    from repro_torch.serving import GenRequest, SamplingParams
+    rng = np.random.default_rng(seed + 23)
+    return [GenRequest(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, int(rng.integers(20, 61)))],
+        params=SamplingParams(max_new_tokens=int(rng.integers(12, 25))))
+        for _ in range(18)]
+
+
+def phase_arctic_drops_parity(torch, seed: int) -> dict:
+    """16b: arctic-480b reduced (2 layers, d 256, the dense residual FFN
+    beside the MoE), float32, capacity factor 0.5, ``max_batch``
+    ``ARCTIC_ROWS``, capacity 128, 16 rows of KVC, on ``_wide_workload``:
+    through ``_drops_parity`` (card = CPU: streams up to float32 ties,
+    decisions, ``sync_counts``, each decode call's drops) at 4 experts,
+    where an expert's 8 slots of a 16-row decode call bind (decode calls
+    must drop), and at the published 128 experts, where a decode call's 32
+    assignments cannot fill an expert's 8 slots but every prefill call
+    drops."""
+    from repro_torch.configs import get_config
+    scfg = dict(kvc_tokens=ARCTIC_ROWS * 128, block_size=16, tfs=256,
+                max_model_len=128, max_batch_reqs=ARCTIC_ROWS)
+    res = {}
+    for experts in (4, 128):
+        cfg = get_config("arctic_480b").reduced(experts=experts).with_(
+            dtype="float32", param_dtype="float32", capacity_factor=0.5)
+        tag = f"16b arctic {experts} experts"
+        r = res[experts] = _drops_parity(
+            torch, seed, cfg, tag, ARCTIC_ROWS, 128, _wide_workload, scfg,
+            must_drop=experts == 4)
+        if r["widest_decode_batch"] != ARCTIC_ROWS or \
+                r["decode_iters_with_idle_rows"] <= 0:
+            raise AssertionError(f"[{tag}] no decode call of {ARCTIC_ROWS} "
+                                 f"active rows, or none with an idle row")
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3436,6 +3637,13 @@ def main(argv=None) -> int:
         lap("15a-c")
         phase_grad_others(torch, args.seed)
         lap("15d")
+        phase_train_others(torch, smi, args.seed, TRAIN_15EF, "ef",
+                           TRAIN_15EF_STEPS)
+        lap("15e-f")
+        arctic = phase_arctic(torch, smi, args.seed)
+        lap("16a")
+        phase_arctic_drops_parity(torch, args.seed)
+        lap("16b")
     finally:
         stop_dryrun(started)
     serving = {"4": main["launches"], "6": fleet["launches"],
@@ -3444,7 +3652,7 @@ def main(argv=None) -> int:
                "9a": ring["launches"], "12b": sharded["launches"],
                "13a": opt["launches"], "13b": opt["pressure"]["launches"],
                "14a": stablelm["launches"], "14b": deepseek["launches"],
-               "14d": music["launches"]}
+               "14d": music["launches"], "16a": arctic["launches"]}
     launches = {k: sum(n[k] for n in serving.values())
                 for k in ("flash_prefill", "paged_decode")}
     log(f"[launches] by serving phase: {json.dumps(serving)}")

@@ -173,8 +173,11 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
 
     The new K/V are written into the cache rows first (in place, where the
     reference returns updated arrays from a donated buffer), then the token
-    attends. ``active`` (B,) bool restricts the write to those rows: an
-    inactive slot may hold a queued request's live KV. Returns y (B,1,d)."""
+    attends. With ``active`` (B,) bool every row still writes and attends
+    over its own new K/V, as the reference's rows do, and the inactive rows'
+    slots get their old values back afterwards, bit for bit (the reference's
+    engine drops those writes after the step): an inactive slot may hold a
+    queued request's live KV. Returns y (B,1,d)."""
     B = x.shape[0]
     C = cache_k.shape[1]
     nkv = kv_heads or cfg.num_kv_heads
@@ -191,11 +194,8 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
         _write_slot_sharded(cache_v, slot, v_new)
     else:
         if active is not None:
-            # masked write without a host sync: inactive rows rewrite
-            # their own current value
-            m = active[:, None, None]
-            k_new = torch.where(m, k_new, cache_k[bidx, slot])
-            v_new = torch.where(m, v_new, cache_v[bidx, slot])
+            # the gathers copy the slots' old values, with no host sync
+            old_k, old_v = cache_k[bidx, slot], cache_v[bidx, slot]
         cache_k[bidx, slot] = k_new
         cache_v[bidx, slot] = v_new
     # every written slot is valid; softmax is permutation-invariant, so
@@ -203,6 +203,10 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     n_valid = torch.clamp(pos + 1, max=C) if windowed else pos + 1
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, n_valid,
                                softcap=cfg.attn_logit_softcap)[:, None]
+    if active is not None:
+        m = active[:, None, None]
+        cache_k[bidx, slot] = torch.where(m, k_new, old_k)
+        cache_v[bidx, slot] = torch.where(m, v_new, old_v)
     return merge_heads(out) @ p["wo"]
 
 

@@ -153,15 +153,12 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("ecfg", [None, LEGACY], ids=["megastep", "legacy"])
-def test_moe_decode_drops_like_the_reference(ecfg, one_thread, monkeypatch):
-    """``max_batch=16`` at ``capacity_factor=0.5``: a decode call routes
-    16 tokens (inactive rows too, as the reference's) to 2 of 4 experts
-    with ``capacity(16) = 8`` slots each, so an expert chosen by more than
-    8 rows drops the rest. The streams, completion times, decisions and
-    counters equal the reference engine's, under megastep windows and
-    under the legacy sync decode; 16 rows decoded together, and decode
-    calls did drop."""
+def run_drops(cfgs, ecfg, monkeypatch):
+    """The 16-row drop workload on ``cfgs`` (at ``capacity_factor=0.5``)
+    against the reference engine: the streams, completion times, decisions
+    and counters equal, 16 rows decoded together, and decode calls did
+    drop (counted by a wrapper of ``moe._route`` inside
+    ``model.decode_step``). Returns the port's engine."""
     drops, in_decode, widest = [], [], [0]
     route, decode_step = moe._route, model.decode_step
 
@@ -184,11 +181,24 @@ def test_moe_decode_drops_like_the_reference(ecfg, one_thread, monkeypatch):
     monkeypatch.setattr(moe, "_route", counted)
     scfg = dict(kvc_tokens=MB * 128, block_size=16, tfs=256,
                 max_model_len=128, max_batch_reqs=MB)
-    pair = _run_pair(_cfgs(capacity_factor=0.5), _wide_workload, ecfg=ecfg,
-                     scfg=scfg, mb=MB, cap=128)
+    pair = _run_pair(cfgs, _wide_workload, ecfg=ecfg, scfg=scfg, mb=MB,
+                     cap=128)
     eng = _equal(pair)
     assert moe.capacity(eng.cfg, MB) == 8 and widest[0] == MB
     assert drops and sum(drops) > 0, drops
     assert len(drops) == eng.decode_iters * eng.cfg.num_layers
     if ecfg is None:
         assert eng.n_mega_windows > 0
+    return eng
+
+
+@pytest.mark.parametrize("ecfg", [None, LEGACY], ids=["megastep", "legacy"])
+def test_moe_decode_drops_like_the_reference(ecfg, one_thread, monkeypatch):
+    """``max_batch=16`` at ``capacity_factor=0.5``: a decode call routes
+    16 tokens (inactive rows too, as the reference's) to 2 of 4 experts
+    with ``capacity(16) = 8`` slots each, so an expert chosen by more than
+    8 rows drops the rest. The streams, completion times, decisions and
+    counters equal the reference engine's, under megastep windows and
+    under the legacy sync decode; 16 rows decoded together, and decode
+    calls did drop."""
+    run_drops(_cfgs(capacity_factor=0.5), ecfg, monkeypatch)

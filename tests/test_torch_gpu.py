@@ -524,6 +524,64 @@ def test_moe_engine_that_drops_at_decode_on_the_card_matches_the_cpu(card):
     assert got_drops == want_drops and sum(got_drops) > 0
 
 
+@pytest.mark.parametrize("arch,dtype", [
+    ("qwen3_8b", torch.float32), ("arctic_480b", torch.float32),
+    ("mistral_nemo_12b", torch.float32), ("qwen3_8b", torch.bfloat16),
+    ("mistral_nemo_12b", torch.bfloat16)],
+    ids=["qwen3-f32", "arctic-f32", "ring-f32", "qwen3-bf16", "ring-bf16"])
+def test_decode_step_with_inactive_rows_on_the_card(card, arch, dtype):
+    """``model.decode_step`` over 16 rows with about half inactive, on
+    caches filled from a seed (mistral-nemo's are rings of its 64-token
+    window, written past their wrap; arctic routes 16 rows to 4 experts
+    at capacity factor 0.5): on the card every row's logits equal those
+    of the same call without a mask bit for bit, the inactive rows'
+    caches are bitwise what they were, the active rows' equal the
+    unmasked call's; and the logits agree with the CPU's from the same
+    weights (float32 to 2e-5 of max|logit| with TF32 off, bf16 to 2**-4
+    of it: each side rounds every layer's products to bf16). bf16 runs
+    the dense and ring stacks only: a bf16 rounding may change an expert
+    choice between the card and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = get_config(arch).reduced().with_(dtype=name, param_dtype=name)
+    if cfg.is_moe:
+        cfg = cfg.with_(capacity_factor=0.5)
+    B, cap = 16, 64 if cfg.sliding_window else 40
+    gen = torch.Generator().manual_seed(5)
+    cpu = model.init(cfg, gen, "cpu")
+    caches = model.init_cache(cfg, B, cap, device="cpu")
+    for n in ("k", "v"):
+        caches["A"][n] = torch.randn(caches["A"][n].shape,
+                                     generator=gen).to(dtype)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    pos = torch.randint(8, 2 * cap, (B,), generator=gen).int()
+    if cfg.sliding_window is None:
+        pos = pos.clamp(max=cap - 1)
+    active = torch.rand(B, generator=gen) < 0.5
+    active[:2] = torch.tensor([True, False])
+
+    def step(params, device, mask):
+        c = {"A": {n: t.clone().to(device) for n, t in caches["A"].items()}}
+        lg, c = model.decode_step(cfg, params, toks.to(device),
+                                  pos.to(device), c,
+                                  active=None if mask is None
+                                  else mask.to(device))
+        return lg.float().cpu(), {n: t.cpu() for n, t in c["A"].items()}
+
+    gpu = {k: p.cuda() for k, p in cpu.items()}
+    paged_decode_attention.launches = 0
+    got, got_c = step(gpu, "cuda", active)
+    assert paged_decode_attention.launches == cfg.num_layers
+    full, full_c = step(gpu, "cuda", None)
+    assert torch.equal(got, full)
+    for n in ("k", "v"):
+        assert torch.equal(got_c[n][:, ~active], caches["A"][n][:, ~active])
+        assert torch.equal(got_c[n][:, active], full_c[n][:, active])
+    want, _ = step(cpu, "cpu", active)
+    share = 2e-5 if dtype == torch.float32 else 2.0 ** -4
+    assert float((got - want).abs().max()) <= share * float(want.abs().max())
+
 
 # --------------------------------------------------------------------- #
 # KV migration and the fleet on the card

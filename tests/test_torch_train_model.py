@@ -89,12 +89,14 @@ def assert_close(ref, got):
 # and MoE at capacity factor 0.5, where the reference's router sends more
 # of the 192 tokens' assignments to an expert than its 48 slots in every
 # layer: the backward pass runs through dropped assignments (the
-# dispatch's cut-off column, the combine's zero rows)
+# dispatch's cut-off column, the combine's zero rows); arctic's MoE has a
+# dense residual FFN beside it
 @pytest.mark.parametrize("arch,cf", [
     ("qwen3_8b", None), ("phi3_5_moe_42b", None), ("phi3_vision_4_2b", None),
-    ("mistral_nemo_12b", None), ("phi3_5_moe_42b", 0.5)],
+    ("mistral_nemo_12b", None), ("phi3_5_moe_42b", 0.5),
+    ("arctic_480b", None)],
     ids=["qwen3_8b", "phi3_5_moe_42b", "phi3_vision_4_2b",
-         "mistral_nemo_12b", "phi3_5_moe_42b-drops"])
+         "mistral_nemo_12b", "phi3_5_moe_42b-drops", "arctic_480b"])
 def test_loss_aux_and_every_grad_match_the_reference(arch, cf, monkeypatch):
     jcfg, cfg = cfgs(arch)
     if cf is not None:
