@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..obs.spans import spanned
 from . import ref, refuse_grad, traced
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,6 +94,7 @@ def _i32(a: Optional[torch.Tensor], shape, device) -> Optional[torch.Tensor]:
     return a
 
 
+@spanned("kernels.flash_call")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,

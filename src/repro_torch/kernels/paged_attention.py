@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..obs.spans import spanned
 from . import ref, refuse_grad, traced
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -214,6 +215,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    k_pages.shape[1], block_tables.shape[1], softcap)
 
 
+@spanned("kernels.decode_call")
 def decode_rows(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 context_lens: torch.Tensor, page: int, *,
                 softcap: Optional[float] = None) -> torch.Tensor:

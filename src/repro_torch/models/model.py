@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed.dtensor import (gather_fsdp, is_dtensor, pad_rows, psum,
                                    rows_heads, unpad_rows)
+from ..obs.spans import current, span
 from . import attention, mlp, moe, ssm, xlstm
 from .common import (BATCH_AXES, EMBED, LAYER, VOCAB, ParamMeta, ParamTree,
                      abstract_params, init_params, maybe_constrain, rms_norm)
@@ -348,7 +349,7 @@ def _ffn(p, cfg, h, rows=None):
     alone)."""
     if not cfg.is_moe:
         return mlp.mlp_apply(p, h), None
-    with torch.profiler.record_function("model.moe"):
+    with span("model.moe", current()):
         y, aux = moe.moe_apply({k[len(MOE):]: v for k, v in p.items()
                                 if k.startswith(MOE)}, cfg, h, rows)
     if cfg.moe_dense_residual:

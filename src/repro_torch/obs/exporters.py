@@ -1,5 +1,5 @@
-"""Exporters for registry snapshots: Prometheus text format, JSON
-time-series, and Chrome ``trace_event`` request-lifecycle spans.
+"""Exporters for registry snapshots: Prometheus text format and JSON
+time-series.
 
 All exporters consume the immutable :class:`~repro_torch.obs.registry.Snapshot`
 (or the :class:`TimeSeriesLog` accumulated from snapshots) — nothing here
@@ -9,13 +9,12 @@ diagnostics built from the same snapshot.
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from .registry import HistogramValue, Snapshot, _render_labels
 
 __all__ = ["to_prometheus_text", "parse_prometheus_text",
-           "write_prometheus", "TimeSeriesLog", "write_json_snapshot",
-           "request_trace_events", "write_chrome_trace"]
+           "write_prometheus", "TimeSeriesLog", "write_json_snapshot"]
 
 
 # --------------------------------------------------------------------- #
@@ -133,67 +132,3 @@ def write_json_snapshot(snap: Snapshot, path: str,
         doc["meta"] = extra
     with open(path, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
-
-
-# --------------------------------------------------------------------- #
-# Chrome trace_event request-lifecycle spans
-# --------------------------------------------------------------------- #
-# phase spans are reconstructed from the Request JCT decomposition the
-# scheduler already maintains (§2.2 timestamps), so the trace agrees with
-# the metrics by construction: queued (arrival -> first execution),
-# prefill (first execution -> first token), decode (first token ->
-# terminal), with swap/migrate time and preemptions attached as args.
-def request_trace_events(requests: Sequence, pid: int = 0,
-                         clock_us: float = 1e6) -> List[dict]:
-    """Chrome ``trace_event`` list for a set of ``repro_torch.core.request``
-    Requests. ``clock_us`` converts iteration-clock units to trace
-    microseconds. One trace row (tid) per request."""
-    events: List[dict] = []
-
-    def span(name: str, rid: int, t0: float, t1: float, **args) -> None:
-        if t1 < t0:
-            return
-        events.append({"name": name, "cat": "request", "ph": "X",
-                       "pid": pid, "tid": rid,
-                       "ts": t0 * clock_us,
-                       "dur": max(0.0, (t1 - t0)) * clock_us,
-                       "args": args})
-
-    for r in requests:
-        t_exec = r.t_start_exec
-        t_first = r.t_first_token
-        t_end = r.t_complete
-        terminal = "completed" if t_end is not None else r.state.value
-        if t_end is None:
-            # aborted/shed: close open spans at the last charged event
-            t_end = r._last_event_t
-        span("queued", r.rid, r.arrival,
-             t_exec if t_exec is not None else t_end,
-             prompt_len=r.prompt_len)
-        if t_exec is not None:
-            span("prefill", r.rid, t_exec,
-                 t_first if t_first is not None else t_end,
-                 prompt_len=r.prompt_len)
-        if t_first is not None:
-            span("decode", r.rid, t_first, t_end,
-                 generated=r.generated, terminal=terminal)
-        if r.swap_time > 0 or r.n_preemptions > 0:
-            # swap/migrate holds have no absolute timestamps in the JCT
-            # decomposition — attach the totals as an instant marker
-            events.append({"name": "swap_migrate", "cat": "request",
-                           "ph": "i", "s": "t", "pid": pid, "tid": r.rid,
-                           "ts": t_end * clock_us,
-                           "args": {"swap_time": r.swap_time,
-                                    "preempt_time": r.preempt_time,
-                                    "n_preemptions": r.n_preemptions}})
-        if terminal != "completed":
-            events.append({"name": terminal, "cat": "request", "ph": "i",
-                           "s": "t", "pid": pid, "tid": r.rid,
-                           "ts": t_end * clock_us, "args": {}})
-    return events
-
-
-def write_chrome_trace(events: List[dict], path: str) -> None:
-    with open(path, "w") as f:
-        json.dump({"traceEvents": events,
-                   "displayTimeUnit": "ms"}, f)

@@ -42,11 +42,29 @@ sampling. Its hot path follows the reference's:
     (``repro_torch.cluster``). Recurrent and hybrid stacks have no
     portable image: the receiver recomputes, as the reference's does.
 
-Under ``torch.profiler`` the prefill waves, the chunk calls and the decode
-dispatch of each step show as the ranges ``engine.prefill_wave``,
-``engine.prefill_chunks`` and ``engine.decode``. The profiler credits a
+Host spans (``repro_torch.obs.spans``). ``step`` runs, in order and each
+at most once: ``engine.admit`` (buffered arrivals, injects and aborts),
+``scheduler.form_batch``, ``engine.prefill_wave`` and
+``engine.prefill_chunks`` (the flash wrapper's ``kernels.flash_call``
+inside), ``engine.decode``, ``scheduler.finish_iteration`` (with the
+completions), then ``engine.drain`` for a flush. Inside ``engine.decode``:
+``engine.drain`` (the readback ring's device-to-host copy and appends),
+``engine.decode_launch`` (one iteration's or one megastep window's
+launches, with a ``kernels.decode_call`` a layer), ``engine.eos_readback``
+(blocking EOS flag reads) and ``engine.mega_replay`` (the host replay of a
+window's row). ``model.moe`` sits inside a MoE stack's calls. With
+``engine.spans = SpanTotals()`` each span adds its host nanoseconds and a
+call; without totals and profiler a span costs one flag read. Under
+``torch.profiler`` only ``engine.prefill_wave``, ``engine.prefill_chunks``,
+``engine.decode`` and ``model.moe`` show as ranges. The profiler credits a
 range with the device time of the aten kernels launched inside it; the two
 attention kernels, launched through ctypes, it ties to no op or range.
+
+Each ``GenRequest`` carries host ``time.monotonic()`` stamps of its first
+token: ``t_first_sampled`` when the prefill enqueued it into the readback
+ring, ``t_first_drained`` when it reached ``output``. With ``t_submit`` and
+the scheduler's ``t_start_exec`` they split the time to a first token into
+queue, prefill and ring.
 
 Where the reference donates buffers to XLA, this engine updates caches and
 slot state in place. Where the reference scatters with ``mode="drop"``
@@ -74,6 +92,7 @@ from ..kernels.ref import POS_INVALID
 from ..models import model
 from ..models.config import ATTN, ModelConfig
 from ..obs import MetricsRegistry, publish_engine
+from ..obs.spans import SpanTotals, set_current, span
 
 from .sampling import SamplingParams, sample_in_graph, sample_per_request
 
@@ -191,6 +210,11 @@ class GenRequest:
     output: List[int] = field(default_factory=list)
     t_submit: float = 0.0
     t_done: Optional[float] = None
+    # host ``time.monotonic()`` when the first response token was enqueued
+    # into the readback ring (the sync path: written to ``output``), and
+    # when it was appended to ``output``
+    t_first_sampled: Optional[float] = None
+    t_first_drained: Optional[float] = None
     # --- fault tolerance / SLO enforcement -----------------------------
     deadline: float = float("inf")   # absolute (iteration-clock) deadline
     status: Optional[str] = None     # terminal: completed | aborted | shed
@@ -363,6 +387,8 @@ class ServingEngine:
         # metrics hook: an attached sampler's on_step(engine, now) runs at
         # the end of every step (host-side reads only)
         self.metrics = None
+        # host span totals (``repro_torch.obs.spans``): None collects none
+        self.spans: Optional[SpanTotals] = None
 
     # ------------------------------------------------------------------ #
     # device programs (the reference's jitted functions)
@@ -998,11 +1024,11 @@ class ServingEngine:
             self.n_prefill_waves += 1
             # one call for the wave, or one exact-shape call per prompt
             groups = [whole] if self._pad_prefill else [[it] for it in whole]
-            with torch.profiler.record_function("engine.prefill_wave"):
+            with span("engine.prefill_wave", self.spans):
                 for group in groups:
                     self._prefill_group(group, now)
         if chunked:
-            with torch.profiler.record_function("engine.prefill_chunks"):
+            with span("engine.prefill_chunks", self.spans):
                 self._run_chunk_items(chunked, now)
 
     def _prefill_group(self, group, now: float) -> None:
@@ -1093,8 +1119,7 @@ class ServingEngine:
                     fallback[i] = g.output[r.generated - 1]
             self._seed_slots(slot_arr, first, fallback, use_first, lens,
                              temps, top_ks, eos)
-            if mapping:
-                self._enqueue_drain(first, None, mapping)
+            self._enqueue_first(first, mapping)
         else:
             first_np = first.cpu().numpy()
             for i, (r, _) in enumerate(group):
@@ -1104,6 +1129,7 @@ class ServingEngine:
                 if r.generated == 0:
                     tok = int(first_np[i])
                     g.output.append(tok)
+                    g.t_first_sampled = g.t_first_drained = time.monotonic()
                     self.last_tok[slot] = tok
                 else:
                     self.last_tok[slot] = g.output[r.generated - 1]
@@ -1190,8 +1216,7 @@ class ServingEngine:
                     fallback[i] = self.requests[r.rid].output[r.generated - 1]
             self._seed_slots(slot_arr, first, fallback, use_first, lens,
                              temps, top_ks, eos)
-            if mapping:
-                self._enqueue_drain(first, None, mapping)
+            self._enqueue_first(first, mapping)
         else:
             first_np = first.cpu().numpy()
             for i, (r, slot, _, end) in enumerate(finals):
@@ -1200,6 +1225,7 @@ class ServingEngine:
                 if r.generated == 0:
                     tok = int(first_np[i])
                     g.output.append(tok)
+                    g.t_first_sampled = g.t_first_drained = time.monotonic()
                     self.last_tok[slot] = tok
                 else:
                     self.last_tok[slot] = g.output[r.generated - 1]
@@ -1335,14 +1361,16 @@ class ServingEngine:
             sched = self.scheduler
             stop_on_eos = eos_possible and bool(sched.pt_queue
                                                 or sched.gt_queue)
-            self._mega_toks, eos_buf, gen_states = self._mega_fn(
-                self._active_dev, K, need_sample, need_topk, stop_on_eos)
+            with span("engine.decode_launch", self.spans):
+                self._mega_toks, eos_buf, gen_states = self._mega_fn(
+                    self._active_dev, K, need_sample, need_topk, stop_on_eos)
             self.n_decode_dispatches += 1
             self.n_mega_windows += 1
             if eos_possible:
                 # one blocking readback per window
                 self.sync_counts["eos_flags"] += 1
-                self._mega_eos = eos_buf.cpu().numpy()
+                with span("engine.eos_readback", self.spans):
+                    self._mega_eos = eos_buf.cpu().numpy()
                 if stop_on_eos:
                     slots = [self.slot_of[r.rid] for r in reqs]
                     hit = self._mega_eos[:K, slots].any(axis=1)
@@ -1357,15 +1385,17 @@ class ServingEngine:
             self._mega_left = K
             self._consume_mega_row(reqs)
             return
-        toks, eos_hit = self._one_iter(self._active_dev, need_sample,
-                                       need_topk)
+        with span("engine.decode_launch", self.spans):
+            toks, eos_hit = self._one_iter(self._active_dev, need_sample,
+                                           need_topk)
         self.n_decode_dispatches += 1
         self.decode_iters += 1
         self._enqueue_drain(
             toks, None, [(self.slot_of[r.rid], r.rid) for r in reqs])
         if eos_possible:
             self.sync_counts["eos_flags"] += 1
-            flags = eos_hit.cpu().numpy()
+            with span("engine.eos_readback", self.spans):
+                flags = eos_hit.cpu().numpy()
             for r in reqs:
                 if flags[self.slot_of[r.rid]]:
                     self.scheduler.notify_eos(r, r.generated + 1)
@@ -1386,19 +1416,20 @@ class ServingEngine:
 
     def _consume_mega_row(self, reqs: Sequence[Request]) -> None:
         """One host-replay iteration of a megastep window."""
-        self._mega_row += 1
-        self._mega_left -= 1
-        i = self._mega_row
-        self.decode_iters += 1
-        self._enqueue_drain(
-            self._mega_toks, i,
-            [(self.slot_of[r.rid], r.rid) for r in reqs],
-            new_dispatch=(i == 0))
-        if self._mega_eos is not None:
-            flags = self._mega_eos[i]
-            for r in reqs:
-                if flags[self.slot_of[r.rid]]:
-                    self.scheduler.notify_eos(r, r.generated + 1)
+        with span("engine.mega_replay", self.spans):
+            self._mega_row += 1
+            self._mega_left -= 1
+            i = self._mega_row
+            self.decode_iters += 1
+            self._enqueue_drain(
+                self._mega_toks, i,
+                [(self.slot_of[r.rid], r.rid) for r in reqs],
+                new_dispatch=(i == 0))
+            if self._mega_eos is not None:
+                flags = self._mega_eos[i]
+                for r in reqs:
+                    if flags[self.slot_of[r.rid]]:
+                        self.scheduler.notify_eos(r, r.generated + 1)
 
     def _enqueue_drain(self, toks, row, mapping,
                        new_dispatch: bool = True) -> None:
@@ -1415,63 +1446,84 @@ class ServingEngine:
         self._recent_drain_seqs.append(seq)
         self._pending_drain.append((toks, row, mapping, self._last_event))
 
+    def _enqueue_first(self, first: torch.Tensor,
+                       mapping: List[Tuple[int, int]]) -> None:
+        """Push a prefill's first response tokens into the readback ring,
+        stamping each request's ``t_first_sampled``."""
+        if not mapping:
+            return
+        self._enqueue_drain(first, None, mapping)
+        t = time.monotonic()
+        for _, rid in mapping:
+            self.requests[rid].t_first_sampled = t
+
     def _drain_tokens(self, force: bool = False) -> None:
         """Materialize pending sampled-token batches older than the lag,
         all through one device-to-host copy. Readiness (the entry's event)
-        only steers the pop policy; accounting happened at enqueue."""
-        dq = self._pending_drain
-        lag = 0 if force else self.ecfg.readback_lag
-        batch = []
-        while len(dq) > lag:
-            toks, row, mapping, ev = dq[0]
-            ready = ev is None or ev.query()
-            if not ready and not force and len(
-                    {id(t) for t, _, _, _ in dq}) <= self.ecfg.max_pending:
-                break
-            dq.popleft()
-            batch.append((toks, row, mapping))
-        if not batch:
-            return
-        uniq: Dict[int, torch.Tensor] = {}
-        for toks, _, _ in batch:
-            uniq.setdefault(id(toks), toks)
-        flat = torch.cat([t.reshape(-1) for t in uniq.values()]).cpu()
-        mat_of, off = {}, 0
-        for key, t in uniq.items():
-            mat_of[key] = flat[off:off + t.numel()].reshape(t.shape).numpy()
-            off += t.numel()
-        for toks, row, mapping in batch:
-            arr = mat_of[id(toks)]
-            if row is not None:
-                arr = arr[row]
-            for r_, rid in mapping:
-                self.requests[rid].output.append(int(arr[r_]))
-            self.n_tokens_drained += len(mapping)
+        only steers the pop policy; accounting happened at enqueue. A
+        request's first token stamps its ``t_first_drained``."""
+        with span("engine.drain", self.spans):
+            dq = self._pending_drain
+            lag = 0 if force else self.ecfg.readback_lag
+            batch = []
+            while len(dq) > lag:
+                toks, row, mapping, ev = dq[0]
+                ready = ev is None or ev.query()
+                if not ready and not force and len(
+                        {id(t) for t, _, _, _ in dq}) <= self.ecfg.max_pending:
+                    break
+                dq.popleft()
+                batch.append((toks, row, mapping))
+            if not batch:
+                return
+            uniq: Dict[int, torch.Tensor] = {}
+            for toks, _, _ in batch:
+                uniq.setdefault(id(toks), toks)
+            flat = torch.cat([t.reshape(-1) for t in uniq.values()]).cpu()
+            t_host = time.monotonic()
+            mat_of, off = {}, 0
+            for key, t in uniq.items():
+                mat_of[key] = flat[off:off + t.numel()].reshape(
+                    t.shape).numpy()
+                off += t.numel()
+            for toks, row, mapping in batch:
+                arr = mat_of[id(toks)]
+                if row is not None:
+                    arr = arr[row]
+                for r_, rid in mapping:
+                    g = self.requests[rid]
+                    if not g.output:
+                        g.t_first_drained = t_host
+                    g.output.append(int(arr[r_]))
+                self.n_tokens_drained += len(mapping)
 
     # ------------------------------------------------------------------ #
     def step(self, now: Optional[float] = None) -> int:
         """One engine iteration. Returns number of completions."""
         now = time.monotonic() if now is None else now
+        set_current(self.spans)
         if self._mega_left == 0 and (self._arrivals or self._pending_injects
                                      or self._pending_aborts):
             # a window just drained: apply the aborts it deferred, then
             # deliver arrivals
-            for rid, t_ab, reason in self._pending_aborts:
-                self._apply_abort(rid, t_ab, reason)
-            self._pending_aborts.clear()
-            for payload, t_in in self._pending_injects:
-                self._apply_inject(payload, t_in)
-            self._pending_injects.clear()
-            for r, t_arr in self._arrivals:
-                self.scheduler.on_arrival(r, t_arr)
-            self._arrivals.clear()
+            with span("engine.admit", self.spans):
+                for rid, t_ab, reason in self._pending_aborts:
+                    self._apply_abort(rid, t_ab, reason)
+                self._pending_aborts.clear()
+                for payload, t_in in self._pending_injects:
+                    self._apply_inject(payload, t_in)
+                self._pending_injects.clear()
+                for r, t_arr in self._arrivals:
+                    self.scheduler.on_arrival(r, t_arr)
+                self._arrivals.clear()
         if self._mega_left == 0 and self._pending_squeeze:
             kvc = self.scheduler.kvc
             kvc.shrink(int(kvc.capacity_tokens * self._pending_squeeze))
             self._pending_squeeze = 0.0
         if self.guard is not None and self._mega_left == 0:
             self._guard_step(now)
-        plan = self.scheduler.form_batch(now)
+        with span("scheduler.form_batch", self.spans):
+            plan = self.scheduler.form_batch(now)
         if self.scheduler.infeasible_shed:
             # rung 4: requests a squeeze made permanently inadmissible
             shed, self.scheduler.infeasible_shed = \
@@ -1514,26 +1566,27 @@ class ServingEngine:
         if missing:
             missing = self._swap_in(missing, now)
         self._run_prefill(plan.prompt_items, now, missing=missing)
-        with torch.profiler.record_function("engine.decode"):
+        with span("engine.decode", self.spans):
             if self._async:
                 self._run_decode_async(plan, now)
             else:
                 self._run_decode(plan.decode_reqs, now)
-        before = len(self.scheduler.completed)
-        self.scheduler.finish_iteration(now)
-        done = self.scheduler.completed[before:]
-        freed = False
-        for r in done:
-            g = self.requests[r.rid]
-            if g.finished:
-                self.n_dup_completions += 1     # first writer wins
-            else:
-                g.t_done = r.t_complete
-                g.status = "completed"
-            slot = self.slot_of.pop(r.rid, None)
-            if slot is not None:
-                self.free_slots.append(slot)
-                freed = True
+        with span("scheduler.finish_iteration", self.spans):
+            before = len(self.scheduler.completed)
+            self.scheduler.finish_iteration(now)
+            done = self.scheduler.completed[before:]
+            freed = False
+            for r in done:
+                g = self.requests[r.rid]
+                if g.finished:
+                    self.n_dup_completions += 1     # first writer wins
+                else:
+                    g.t_done = r.t_complete
+                    g.status = "completed"
+                slot = self.slot_of.pop(r.rid, None)
+                if slot is not None:
+                    self.free_slots.append(slot)
+                    freed = True
         # preempted/evicted requests (KVC freed by the scheduler) lose
         # their slot after their pages are offloaded (rung 2); queued GTs
         # keep theirs

@@ -296,3 +296,105 @@ def test_entry_points_default_to_the_card(cfgs):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg)
+
+
+# --------------------------------------------------------------------- #
+# host spans and first-token stamps
+# --------------------------------------------------------------------- #
+CHUNK_SCFG = dict(kvc_tokens=4 * 192, block_size=16, tfs=32,
+                  max_model_len=192, max_batch_reqs=4)
+STAMP_PATHS = {
+    "megastep": (_megastep_workload, None, None),
+    "chunks": (_chunk_workload, None, CHUNK_SCFG),
+    "sync": (_async_workload, LEGACY, None),
+}
+
+
+def _serve_live(cfg, workload, *, ecfg=None, scfg=None, totals=None):
+    """Serve on the host's monotonic clock, one request submitted every
+    third step (arrivals land inside megastep windows)."""
+    import time
+    eng = ServingEngine(
+        cfg, max_batch=4, capacity=192, seed=0, rl_accuracy=1.0,
+        scheduler_cfg=SchedulerConfig(**scfg) if scfg else None,
+        engine_cfg=EngineConfig(**ecfg) if ecfg else None, device="cpu")
+    eng.spans = totals
+    reqs = workload(GenRequest, SamplingParams, cfg.vocab_size)
+    todo, steps = list(reqs), 0
+    while todo or eng.has_work():
+        if todo and steps % 3 == 0:
+            eng.submit(todo.pop(0), time.monotonic())
+        if eng.has_work():
+            eng.step(time.monotonic())
+        steps += 1
+    eng.flush()
+    return eng, reqs, steps
+
+
+def test_span_totals_change_no_token_and_no_sync_count(cfgs):
+    """Megastep windows (K = 8) behind a lag-2 readback ring give the same
+    streams, ``sync_counts`` and dispatch counters with ``SpanTotals``
+    attached as without; the totals count what the engine counts, and
+    each nested span's time is at most its parent's."""
+    from repro_torch.obs import SpanTotals
+    _, cfg = cfgs
+    bare, bare_reqs, _ = _serve_live(cfg, _megastep_workload)
+    tot = SpanTotals()
+    eng, reqs, steps = _serve_live(cfg, _megastep_workload, totals=tot)
+    assert eng.ecfg.decode_megastep == 8 and eng.ecfg.readback_lag == 2
+    assert [g.output for g in reqs] == [g.output for g in bare_reqs]
+    assert eng.sync_counts == bare.sync_counts
+    assert (eng.decode_iters, eng.n_decode_dispatches, eng.n_mega_windows) \
+        == (bare.decode_iters, bare.n_decode_dispatches, bare.n_mega_windows)
+    assert eng.n_mega_windows > 0
+    calls, ns = tot.calls, tot.ns
+    # a step whose plan is empty returns before ``finish_iteration``
+    assert calls["scheduler.form_batch"] >= calls[
+        "scheduler.finish_iteration"] > 0
+    assert calls["engine.decode_launch"] == eng.n_decode_dispatches
+    assert calls["engine.mega_replay"] + eng.n_decode_dispatches \
+        - eng.n_mega_windows == eng.decode_iters
+    assert calls["engine.prefill_wave"] == eng.n_prefill_waves
+    assert calls["engine.admit"] > 0 and calls["engine.eos_readback"] == 0
+    assert calls["kernels.decode_call"] >= cfg.num_layers * eng.decode_iters
+    assert calls["kernels.flash_call"] >= cfg.num_layers
+    assert ns["engine.decode"] >= ns["engine.decode_launch"] \
+        >= ns["kernels.decode_call"] > 0
+    assert ns["engine.prefill_wave"] >= ns["kernels.flash_call"] > 0
+
+
+@pytest.mark.parametrize("path", sorted(STAMP_PATHS))
+def test_first_token_stamps_follow_submit(cfgs, path):
+    """Every completed request was submitted, then its first token
+    sampled, then drained, on the host's monotonic clock; the sync path
+    writes the token to ``output`` as it samples it."""
+    _, cfg = cfgs
+    workload, ecfg, scfg = STAMP_PATHS[path]
+    eng, reqs, _ = _serve_live(cfg, workload, ecfg=ecfg, scfg=scfg)
+    if path == "chunks":
+        assert eng.n_prefill_chunks > 0
+    for g in reqs:
+        assert g.status == "completed"
+        assert g.t_submit <= g.t_first_sampled <= g.t_first_drained
+        if path == "sync":
+            assert g.t_first_sampled == g.t_first_drained
+
+
+def test_profiler_sees_only_the_readers_ranges(cfgs):
+    """With ``SpanTotals`` attached under ``torch.profiler`` the totals
+    hold every span, and the profiler no range but the four the
+    benchmark's trace reader knows (any other's device shadow would read
+    there as a kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import SpanTotals
+    from repro_torch.obs.spans import PROFILER_RANGES
+    _, cfg = cfgs
+    tot = SpanTotals()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _serve_live(cfg, _chunk_workload, scfg=CHUNK_SCFG, totals=tot)
+    names = {e.key for e in prof.events()}
+    assert {"engine.drain", "engine.decode_launch", "scheduler.form_batch",
+            "kernels.decode_call", "kernels.flash_call",
+            "engine.prefill_chunks"} <= set(tot.calls)
+    assert names & set(tot.calls) == PROFILER_RANGES & set(tot.calls) \
+        == {"engine.prefill_wave", "engine.prefill_chunks", "engine.decode"}

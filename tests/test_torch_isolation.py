@@ -18,8 +18,7 @@ COPIED = ([f"core/{m}.py" for m in ("request", "kvc", "ordering",
                                      "pressure", "scheduler", "metrics",
                                      "simulator", "traces", "baselines",
                                      "registry")]
-          + [f"obs/{m}.py" for m in ("registry", "exporters", "sampler",
-                                     "__init__")]
+          + [f"obs/{m}.py" for m in ("registry", "sampler")]
           + [f"cluster/{m}.py" for m in ("transport", "autoscale", "base",
                                          "router", "hedge", "sim",
                                          "__init__")]
@@ -32,6 +31,11 @@ COPIED = ([f"core/{m}.py" for m in ("request", "kvc", "ordering",
 COPIED_EXCEPT = {"cluster/faults.py": {"corrupt_payload"},
                  "launch/analytic.py": {"__doc__", "PEAK_FLOPS", "HBM_BW",
                                         "LINK_BW", "CHIPS"}}
+# copied but for the named top-level definitions, which the port drops
+# (with the module docstring, the imports and ``__all__`` that name them);
+# ``obs/__init__.py`` is the port's own: it adds the serving loop's spans
+COPIED_WITHOUT = {"obs/exporters.py": {"request_trace_events",
+                                       "write_chrome_trace"}}
 
 
 def _port_files():
@@ -127,3 +131,24 @@ def test_copied_module_equals_reference_but_for_named_definitions(rel):
     for n in exempt:
         port_text = port_text.replace(got[n], want[n])
     assert port_text == ref_text, f"{rel} drifted outside its definitions"
+
+
+@pytest.mark.parametrize("rel", sorted(COPIED_WITHOUT))
+def test_copied_module_equals_reference_but_for_dropped_definitions(rel):
+    """Every top-level definition (and method) the port keeps equals the
+    reference's, but the module docstring, the imports and ``__all__``,
+    which lose the dropped names and nothing else."""
+    ref_text = (REF / rel).read_text().replace("repro.", "repro_torch.")
+    port_text = (PORT / rel).read_text()
+    want, got = _definitions(ref_text), _definitions(port_text)
+    dropped = COPIED_WITHOUT[rel]
+    assert dropped <= set(want), f"{rel}: no definition named {dropped}"
+    assert set(got) == set(want) - dropped, f"{rel}: definitions differ"
+    imports = {n for n, s in got.items() if s.startswith(("import ",
+                                                          "from "))}
+    drifted = sorted(n for n in got if got[n] != want[n]
+                     and n not in imports | {"__doc__", "__all__"})
+    assert not drifted, f"{rel} drifted from src/repro/{rel}: {drifted}"
+    exported = [set(ast.literal_eval(d["__all__"].split("=", 1)[1]))
+                for d in (want, got)]
+    assert exported[1] == exported[0] - dropped

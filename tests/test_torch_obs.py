@@ -153,3 +153,102 @@ def test_fleet_metrics_under_chaos_match_jax(backends):  # noqa: F811
     assert [i.engine.sync_counts for i in fleet.instances] == \
         [i.engine.sync_counts for i in bare.instances]
     assert snap['fleet_instance_health{instance="1"}'] == 2.0
+
+
+# --------------------------------------------------------------------- #
+# host spans (``repro_torch.obs.spans``)
+# --------------------------------------------------------------------- #
+from repro_torch.obs import spans  # noqa: E402
+
+
+@pytest.mark.parametrize("profiling,name,totals,ranges", [
+    (False, "engine.decode", False, 0),
+    (False, "engine.drain", True, 0),
+    (True, "engine.decode", False, 1),
+    (True, "engine.drain", True, 0),      # its shadow would read as a kernel
+])
+def test_span_opens_a_profiler_range_only_for_the_readers_names(
+        monkeypatch, profiling, name, totals, ranges):
+    """Without profiler and totals a span is the shared null context and
+    opens no ``record_function``; under a profiler only the four names the
+    benchmark's trace reader knows open one."""
+    opened = []
+
+    def record_function(n):
+        opened.append(n)
+        return spans._OFF
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    monkeypatch.setattr(spans._autograd_profiler, "_is_profiler_enabled",
+                        profiling)
+    tot = spans.SpanTotals() if totals else None
+    cm = spans.span(name, tot)
+    with cm:
+        pass
+    assert opened == [name] * ranges
+    if not profiling and not totals:
+        assert cm is spans._OFF
+    if totals:
+        assert tot.calls == {name: 1}
+
+
+def test_nested_spans_accumulate():
+    """Each span adds its host nanoseconds and one call; a child's total
+    is at most its parent's; ``between`` takes two snapshots apart."""
+    import time
+    tot = spans.SpanTotals()
+    before = tot.snapshot()
+    for _ in range(3):
+        with spans.span("engine.decode", tot):
+            time.sleep(0.001)
+            with spans.span("engine.decode_launch", tot):
+                time.sleep(0.002)
+                for _ in range(2):
+                    with spans.span("kernels.decode_call", tot):
+                        time.sleep(0.0005)
+    got = spans.SpanTotals.between(before, tot.snapshot())
+    assert got["calls"] == {"engine.decode": 3, "engine.decode_launch": 3,
+                            "kernels.decode_call": 6}
+    ns = got["ns"]
+    assert ns["engine.decode"] >= ns["engine.decode_launch"] \
+        >= ns["kernels.decode_call"] >= 6 * 500_000
+    assert ns["engine.decode"] - ns["engine.decode_launch"] >= 3 * 1_000_000
+    mid = tot.snapshot()
+    with spans.span("engine.decode", tot):
+        pass
+    again = spans.SpanTotals.between(mid, tot.snapshot())
+    assert again["calls"] == {"engine.decode": 1, "engine.decode_launch": 0,
+                              "kernels.decode_call": 0}
+
+
+def test_spanned_adds_to_the_current_totals():
+    """A function decorated with ``spanned`` adds to ``current()``, and to
+    nothing when no totals are current."""
+    @spans.spanned("kernels.decode_call")
+    def f(x):
+        return x + 1
+    tot = spans.SpanTotals()
+    try:
+        assert f(1) == 2 and not tot.calls
+        spans.set_current(tot)
+        assert f(2) == 3
+        assert tot.calls == {"kernels.decode_call": 1}
+    finally:
+        spans.set_current(None)
+    assert f(3) == 4 and tot.calls == {"kernels.decode_call": 1}
+
+
+def test_span_range_lies_at_its_monotonic_stamp():
+    """Under a CPU ``torch.profiler`` a span's range starts, on the
+    profiler's clock, within 1 ms of a ``time.monotonic_ns`` stamp taken
+    as it opens, moved by ``unix_minus_mono_ns``."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    tot = spans.SpanTotals()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        stamp = time.monotonic_ns()
+        with spans.span("engine.decode", tot):
+            torch.ones(8).sum()
+    start = [e.start_ns() for e in prof.profiler.kineto_results.events()
+             if e.name() == "engine.decode"]
+    assert len(start) == 1
+    assert abs(start[0] - (stamp + tot.unix_minus_mono_ns)) < 1_000_000
