@@ -119,18 +119,24 @@ Phases (any failure raises and exits non-zero):
         flash launches a multiple of 6, decode 6 x the decode
         iterations; tokens/s and peak memory of the unsynchronised run,
         then the profiled run as phase 4's, with the MoE's share of the
-        device time (the ``model.moe`` ranges);
+        device time (the ``model.moe`` ranges) where no decode iteration
+        was replayed from the decode graphs, else null;
      b. greedy parity as phase 5's, phi3.5-MoE at full width cut to 4
         layers, float32, capacity factor 16 (nothing drops);
      c. phi3.5-MoE at its published widths, bf16, max_batch 32 (an
         expert's 8 slots of a 32-row decode call bind), at the depth that
         ``_fit_depth`` finds room for, on 48 requests of phase 4's kind:
         8a's gates, decode calls that drop (counted on the device, read
-        once), the widest decode batch, then the profiled run;
+        once, on an engine that runs its decode pieces as plain calls),
+        the widest decode batch; a default engine, its decode graphs
+        replayed, serves the same workload on the same weights with the
+        same streams, completion times, ``sync_counts`` and launches; then
+        the profiled run;
      d. phi3.5-MoE reduced to 4 layers and 16 experts, float32, TF32 off,
         max_batch 32, 48 greedy requests: the card's engine equals the
         CPU's (streams up to float32 ties, decisions, ``sync_counts``, and
-        the dropped assignments of each decode call);
+        the dropped assignments of each decode call), and a default card
+        engine, its decode graphs replayed, the card's eager one as in 8c;
   9. ring caches:
      a. mistral-nemo-12b at its published widths and depth, bf16, window
         8192 (the reference's long-context window), max_batch 4, capacity
@@ -228,13 +234,16 @@ Phases (any failure raises and exits non-zero):
         room for (2 of 35 layers: a layer is 27.22 GB), on phase 4's
         settings and workload with phase 4's gates, each decode call's
         count of experts that kept a token (on the device, read once)
-        beside the 128 it reads, then the profiled run as 8a's;
+        beside the 128 it reads, a default engine with replayed decode
+        graphs held to the counted one as in 8c, then the profiled run as
+        8a's;
      b. reduced (2 layers, d 256), float32, TF32 off, capacity factor 0.5,
         max_batch 16, 18 greedy requests of 20-60 + 12-24 tokens: the
         card's engine equals the CPU's as 8d's (streams up to float32
-        ties, decisions, ``sync_counts``, each decode call's drops) at 4
-        experts, where decode calls drop while some rows idle, and at
-        128 experts.
+        ties, decisions, ``sync_counts``, each decode call's drops) and
+        the graphed engine equals the eager one as 8d's, at 4 experts,
+        where decode calls drop while some rows idle, and at 128
+        experts.
 Each model is freed before the next is built. The line before the last is
 the kernels' JSON record (launches summed over the serving phases 4, 6,
 7a, 8a, 8c, 9a, 13a, 13b, 14a, 14b, 14d and 16a and the sharded steps of
@@ -1499,6 +1508,9 @@ def phase_profile(torch, cfg, params, seed: int, tag: str, n_attn: int,
              + groups["flash_prefill"])
     dec_us = span_us["engine.decode"] + groups["paged_decode"]
     iters = eng.decode_iters
+    # a replayed decode piece enters no ``model.moe`` range: the MoE's
+    # share is measured only where no decode iteration was replayed
+    moe_us = None if eng.n_graphed_decode_iters else rp["moe_us"]
 
     def ms_per(us, n):
         return us / 1e3 / n if us > 0.0 and n > 0 else None
@@ -1520,8 +1532,9 @@ def phase_profile(torch, cfg, params, seed: int, tag: str, n_attn: int,
                span_us["engine.prefill_chunks"], eng.n_chunk_calls),
            "phase_share_of_busy": (pf_us + dec_us) / busy_us
            if busy_us else None,
-           "moe_device_ms": rp["moe_us"] / 1e3,
-           "moe_share_of_busy": rp["moe_us"] / busy_us if busy_us else None,
+           "moe_device_ms": None if moe_us is None else moe_us / 1e3,
+           "moe_share_of_busy": moe_us / busy_us
+           if busy_us and moe_us is not None else None,
            "span_aten_device_ms": {k: v / 1e3 for k, v in span_us.items()},
            "span_aten_launches": rp["span_launches"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1735,7 +1748,7 @@ def _read_launches(tag: str, L: int, decode_iters=None) -> dict:
 
 
 def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
-                on_start=None, **kw) -> tuple:
+                on_start=None, eager: bool = False, **kw) -> tuple:
     """Build an engine of ``cfg`` on the card with seeded random weights,
     warm it with one short request on a throwaway engine sharing them,
     then serve ``reqs`` once, unsynchronised, with the launch counts and
@@ -1744,11 +1757,12 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
     the ``n_attn`` attention layers, the depth by default; decode
     ``n_attn`` x decode iterations) and no blocking sync. Returns
     (result, engine). ``on_start``, if given, is called just before the
-    timed run."""
+    timed run. ``eager`` runs the decode graphs' pieces as plain calls
+    (``_eager``)."""
     from repro_torch.serving import GenRequest, SamplingParams, ServingEngine
     L = cfg.num_layers
     t0 = time.monotonic()
-    eng = ServingEngine(cfg, device="cuda", **kw)
+    eng = _eager(ServingEngine(cfg, device="cuda", **kw), eager)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in eng.params.values())
     log(f"[{tag}] {cfg.name}: {L} layers ({n_attn or L} with attention), "
@@ -1756,7 +1770,7 @@ def _serve_full(torch, smi: str, cfg, tag: str, reqs, n_attn=None,
         f"{n_params / 1e9:.3f}B params "
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card with "
         f"the caches), init {time.monotonic() - t0:.1f}s")
-    warm = ServingEngine(cfg, eng.params, device="cuda", **kw)
+    warm = _eager(ServingEngine(cfg, eng.params, device="cuda", **kw), eager)
     warm.run([GenRequest(prompt=list(range(1, 65)),
                          params=SamplingParams(max_new_tokens=4))])
     del warm
@@ -2122,8 +2136,9 @@ def phase_moe(torch, smi: str, seed: int) -> dict:
     ``MOE_LAYERS`` of its 32 layers, bf16, seeded random weights,
     max_batch 8, capacity 2048, default EngineConfig, on phase 4's
     workload: one
-    unsynchronised timed run, then one under ``torch.profiler`` (with the
-    MoE's share of device time)."""
+    unsynchronised timed run, then one under ``torch.profiler`` (the MoE's
+    share of device time is null: a replayed decode piece enters no
+    ``model.moe`` range)."""
     from repro_torch.configs import get_config
     cfg = get_config("phi3_5_moe_42b").with_(num_layers=MOE_LAYERS)
     res, eng = _serve_full(torch, smi, cfg, "8a moe", _workload(cfg, seed),
@@ -2189,25 +2204,84 @@ def _route_drops(when, experts=None):
         moe._route = route
 
 
+def _eager(eng, eager: bool = True):
+    """``eng``, which with ``eager`` runs its decode graphs' pieces as
+    plain calls (the program the graphs capture, run without capture):
+    the engine of a phase whose decode calls a Python wrapper counts
+    (``_moe_decode_drops``), since a replayed decode graph runs no
+    Python."""
+    if eager:
+        eng._graphed = False
+    return eng
+
+
+def _graphed_twin(torch, tag: str, cfg, params, reqs, want: dict,
+                  n_attn=None, **kw) -> dict:
+    """A default engine (decode graphs replayed) on ``params`` serving
+    ``reqs`` beside an eager engine that served the same workload (``want``:
+    its "streams", ``[(output, t_done)]`` in request order, its
+    "sync_counts", "decode_iters" and attention "launches"): the same
+    streams and completion times, ``sync_counts``, decode iterations and
+    launches (paged decode ``n_attn`` x decode iterations), every decode
+    iteration replayed. A graphed engine that drops other assignments
+    than the eager one serves other tokens here. Returns the twin's
+    counts."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, params, device="cuda", **kw)
+    _zero_launches()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    got = {"streams": [(g.output, g.t_done) for g in reqs],
+           "sync_counts": dict(eng.sync_counts),
+           "decode_iters": eng.decode_iters,
+           "launches": _read_launches(tag, n_attn or cfg.num_layers,
+                                      eng.decode_iters)}
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"[{tag}] graphed engine: {k} differ from "
+                                 f"the eager engine's"
+                                 + ("" if k == "streams" else
+                                    f": {got[k]} != {v}"))
+    if eng.n_graphed_decode_iters != eng.decode_iters or \
+            eng.n_decode_captures != 1:
+        raise AssertionError(f"[{tag}] graphed engine: "
+                             f"{eng.n_graphed_decode_iters} of "
+                             f"{eng.decode_iters} decode iterations "
+                             f"replayed, {eng.n_decode_captures} captures")
+    res = {k: got[k] for k in ("sync_counts", "decode_iters", "launches")}
+    res["decode_captures"] = eng.n_decode_captures
+    del eng
+    return res
+
+
+def _served(eng, reqs, launches) -> dict:
+    """What ``_graphed_twin`` holds equal, of an engine that served
+    ``reqs`` with ``launches``."""
+    return {"streams": [(g.output, g.t_done) for g in reqs],
+            "sync_counts": dict(eng.sync_counts),
+            "decode_iters": eng.decode_iters, "launches": launches}
+
+
 @contextlib.contextmanager
 def _moe_decode_drops():
     """Count what a MoE's decode calls drop: ``_route_drops`` of the calls
-    inside ``model.decode_step`` (a decode call: every ``max_batch`` row,
+    inside ``model.decode_pieces`` (a decode call: every ``max_batch`` row,
     inactive ones too), while ``ServingEngine._run_decode_async`` logs the
     requests of each decode iteration on the host. Yields {"drops": [...],
     "iters": [[rid, ...], ...]}, which the caller reads once at the end.
     Decode calls run in iteration order, ``depth`` of them an
     iteration. The dict's "experts" holds each decode call's count of
-    experts that kept an assignment (``_route_drops``)."""
+    experts that kept an assignment (``_route_drops``). The engines it
+    watches run their decode pieces as plain calls (``_eager``)."""
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
     iters, depth, experts = [], [0], []
-    step, decode = model.decode_step, ServingEngine._run_decode_async
+    pieces, decode = model.decode_pieces, ServingEngine._run_decode_async
 
     def decoding(*a, **kw):
         depth[0] += 1
         try:
-            return step(*a, **kw)
+            return (yield from pieces(*a, **kw))
         finally:
             depth[0] -= 1
 
@@ -2216,12 +2290,14 @@ def _moe_decode_drops():
             iters.append([r.rid for r in plan.decode_reqs])
         return decode(self, plan, now)
 
-    model.decode_step, ServingEngine._run_decode_async = decoding, run_decode
+    model.decode_pieces, ServingEngine._run_decode_async = decoding, \
+        run_decode
     try:
         with _route_drops(lambda _: depth[0] > 0, experts) as drops:
             yield {"drops": drops, "iters": iters, "experts": experts}
     finally:
-        model.decode_step, ServingEngine._run_decode_async = step, decode
+        model.decode_pieces, ServingEngine._run_decode_async = pieces, \
+            decode
 
 
 def phase_moe_wide(torch, smi: str, seed: int) -> dict:
@@ -2233,8 +2309,11 @@ def phase_moe_wide(torch, smi: str, seed: int) -> dict:
     phase 4's gates (every request complete, tokens in the vocabulary, no
     blocking sync, flash a multiple of the depth, decode depth x decode
     iterations, megastep windows), decode calls that drop (counted on the
-    device by ``_moe_decode_drops``, read once), the largest decode batch;
-    then the profiled run as 8a's."""
+    device by ``_moe_decode_drops``, read once, on an engine that runs its
+    decode pieces as plain calls), the largest decode batch; then a
+    default engine on the same weights, its decode graphs replayed, serves
+    the same workload as that one (``_graphed_twin``); then the profiled
+    run as 8a's."""
     from repro_torch.configs import get_config
     cfg = _fit_depth(torch, get_config("phi3_5_moe_42b"), "8c moe",
                      max_batch=MOE_ROWS)
@@ -2243,8 +2322,9 @@ def phase_moe_wide(torch, smi: str, seed: int) -> dict:
         def clear():
             for v in rec.values():
                 v.clear()
-        res, eng = _serve_full(torch, smi, cfg, "8c moe",
-                               _workload(cfg, seed, 48), on_start=clear,
+        reqs = _workload(cfg, seed, 48)
+        res, eng = _serve_full(torch, smi, cfg, "8c moe", reqs,
+                               on_start=clear, eager=True,
                                max_batch=MOE_ROWS, capacity=2048, seed=seed)
     drops = torch.stack(rec["drops"]).sum().item()
     iters = eng.decode_iters
@@ -2263,8 +2343,14 @@ def phase_moe_wide(torch, smi: str, seed: int) -> dict:
                weights_gb=_nbytes(eng.params) / 1e9,
                caches_gb=_nbytes(eng.caches) / 1e9)
     log(f"[8c moe] {json.dumps(res)}")
-    params = eng.params
+    params, want = eng.params, _served(eng, reqs, res["launches"])
     del eng
+    res["graphed"] = _graphed_twin(torch, "8c moe", cfg, params,
+                                   _workload(cfg, seed, 48), want,
+                                   max_batch=MOE_ROWS, capacity=2048,
+                                   seed=seed)
+    log(f"[8c moe] graphed engine equals the eager one: "
+        f"{json.dumps(res['graphed'])}")
     res["profile"] = p = phase_profile(torch, cfg, params, seed, "8c", L,
                                        max_batch=MOE_ROWS, n=48)
     log(f"[8c moe] {smi}: {L} layers, {res['tok_per_s']:.2f} tokens/s, "
@@ -2318,7 +2404,10 @@ def _drops_parity(torch, seed: int, cfg, tag: str, rows: int,
     calls then see other tokens, so with a parted stream they are held
     equal up to the first decode call that is fed a parted token (and may
     differ from there on). A parting where the logits do not tie (a router
-    choice that flipped, say) fails."""
+    choice that flipped, say) fails. The card's engine whose drops are
+    counted runs its decode pieces as plain calls (``_eager``); a default
+    card engine, its decode graphs replayed, serves the same workload on
+    the same weights beside it (``_graphed_twin``)."""
     import types
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.models import model
@@ -2331,10 +2420,10 @@ def _drops_parity(torch, seed: int, cfg, tag: str, rows: int,
     def run(device, params=None):
         t = time.monotonic()
         with _moe_decode_drops() as rec:
-            eng = ServingEngine(
+            eng = _eager(ServingEngine(
                 cfg, params, max_batch=rows, capacity=capacity, seed=seed,
                 device=device,
-                scheduler_cfg=SchedulerConfig(**scfg) if scfg else None)
+                scheduler_cfg=SchedulerConfig(**scfg) if scfg else None))
             reqs = workload(cfg, seed)
             eng.run(reqs)
         drops = torch.stack(rec["drops"]).cpu().tolist()
@@ -2343,6 +2432,10 @@ def _drops_parity(torch, seed: int, cfg, tag: str, rows: int,
     _zero_launches()
     card, got, card_drops, iters, card_s = run("cuda")
     launches = _read_launches(tag, L, card.decode_iters)
+    graphed = _graphed_twin(
+        torch, tag, cfg, card.params, workload(cfg, seed),
+        _served(card, got, launches), max_batch=rows, capacity=capacity,
+        seed=seed, scheduler_cfg=SchedulerConfig(**scfg) if scfg else None)
     cpu, want, cpu_drops, _, cpu_s = run(
         "cpu", {k: v.cpu() for k, v in card.params.items()})
     if _decisions(card, got) != _decisions(cpu, want):
@@ -2375,10 +2468,13 @@ def _drops_parity(torch, seed: int, cfg, tag: str, rows: int,
            "decode_drops": sum(card_drops),
            "decode_calls_that_drop": sum(d > 0 for d in card_drops),
            "first_differing_call": first, "ties": ties,
-           "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+           "launches": launches, "graphed": graphed, "card_s": card_s,
+           "cpu_s": cpu_s,
            "seconds": time.monotonic() - t0}
     log(f"[{tag}] card equals CPU (streams, decisions, sync_counts, "
-        f"drops per decode call): {json.dumps(res)}")
+        f"drops per decode call), the graphed card engine the eager one "
+        f"(streams, completion times, sync_counts, launches): "
+        f"{json.dumps(res)}")
     del card, cpu
     return res
 
@@ -3440,9 +3536,11 @@ def phase_arctic(torch, smi: str, seed: int) -> dict:
     depth x decode iterations, chunk calls, megastep windows); each decode
     call's count of experts that kept a token (counted on the device by
     ``_moe_decode_drops``, read once) beside the 128 whose weights the
-    call reads, and the least time a decode iteration can take: every
-    weight but the embedding table read once at ``PEAK_BYTES``; then the
-    profiled run as 8a's."""
+    call reads (on an engine that runs its decode pieces as plain calls),
+    and the least time a decode iteration can take: every weight but the
+    embedding table read once at ``PEAK_BYTES``; then a default engine on
+    the same weights, its decode graphs replayed, serves the same workload
+    as that one (``_graphed_twin``); then the profiled run as 8a's."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     cfg = _fit_depth(torch, get_config("arctic_480b"), "16a arctic")
@@ -3451,8 +3549,9 @@ def phase_arctic(torch, smi: str, seed: int) -> dict:
         def clear():
             for v in rec.values():
                 v.clear()
-        res, eng = _serve_full(torch, smi, cfg, "16a arctic",
-                               _workload(cfg, seed), on_start=clear,
+        reqs = _workload(cfg, seed)
+        res, eng = _serve_full(torch, smi, cfg, "16a arctic", reqs,
+                               on_start=clear, eager=True,
                                max_batch=8, capacity=2048, seed=seed)
     hit = torch.stack(rec["experts"]).cpu().tolist()
     drops = int(torch.stack(rec["drops"]).sum())
@@ -3475,8 +3574,13 @@ def phase_arctic(torch, smi: str, seed: int) -> dict:
                decode_floor_ms=read / PEAK_BYTES * 1e3,
                caches_gb=_nbytes(eng.caches) / 1e9)
     log(f"[16a arctic] {json.dumps(res)}")
-    params = eng.params
+    params, want = eng.params, _served(eng, reqs, res["launches"])
     del eng
+    res["graphed"] = _graphed_twin(torch, "16a arctic", cfg, params,
+                                   _workload(cfg, seed), want, max_batch=8,
+                                   capacity=2048, seed=seed)
+    log(f"[16a arctic] graphed engine equals the eager one: "
+        f"{json.dumps(res['graphed'])}")
     res["profile"] = p = phase_profile(torch, cfg, params, seed, "16a", L)
     del params
     log(f"[16a arctic] {smi}: {L} of 35 layers, {res['tok_per_s']:.2f} "

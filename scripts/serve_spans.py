@@ -19,6 +19,10 @@ window, the window ``ttft_p95_ms`` and ``out_tok_s`` are read over. With
 * ``spans``: the span totals of the window, ns and calls by name;
 * ``readings``: the six readings below;
 * ``decode_split``: host ms a decode iteration by span;
+* ``graphs``: the decode graphs (``serving/decode_graphs.py``): decode
+  iterations replayed in the window and their share of the window's
+  ``decode_iters``, the captures of the whole run and their host seconds
+  (``engine.decode_capture``; the captures fall in the pre-roll);
 * ``ttft_split``: the time from a request's due time to its first token
   seen by the harness, over requests due in the window and seen in it, in
   stages: ``late`` (due to ``t_submit``: the harness's loop was inside
@@ -117,7 +121,8 @@ READINGS = (decode_host_ms_per_iter, drain_ms_per_iter,
             prefill_host_ms_per_call)
 DECODE_PARTS = ("engine.decode", "engine.decode_launch", "engine.drain",
                 "engine.eos_readback", "engine.mega_replay",
-                "kernels.decode_call", "engine.admit",
+                "kernels.decode_call", "engine.decode_capture",
+                "engine.admit",
                 "scheduler.form_batch", "scheduler.finish_iteration",
                 "engine.prefill_wave", "engine.prefill_chunks")
 STAGES = ("late", "queue", "prefill", "ring", "seen")
@@ -152,8 +157,8 @@ def ttft_split(recs, gens, core, w0, w1):
 
 def window(marks, t0: float, t1: float):
     """The marks (now, snapshot, decode_iters, host seconds inside ``step``
-    so far) of the first steps at or after ``t0`` and ``t1``, and how many
-    steps lie between them."""
+    so far, graphed decode iterations) of the first steps at or
+    after ``t0`` and ``t1``, and how many steps lie between them."""
     a = next(i for i, m in enumerate(marks) if m[0] >= t0)
     b = next(i for i, m in enumerate(marks) if m[0] >= t1)
     return marks[a], marks[b], b - a
@@ -194,7 +199,8 @@ class Watch:
     def mark(self, now):
         self.marks.append((now, None if self.totals is None
                            else self.totals.snapshot(),
-                           self.eng.decode_iters, self.step_s))
+                           self.eng.decode_iters, self.step_s,
+                           self.eng.n_graphed_decode_iters))
 
 
 def split(served, w: Watch) -> dict:
@@ -211,7 +217,13 @@ def split(served, w: Watch) -> dict:
            "host": {"steps": steps, "decode_iters": iters, "step_s": step_s,
                     "step_ms_per_decode_iter":
                         1e3 * step_s / iters if iters else None},
-           "ttft_split": ttft_split(served.recs, w.gens, w.core, w0, w1)}
+           "ttft_split": ttft_split(served.recs, w.gens, w.core, w0, w1),
+           "graphs": {
+               "graphed_decode_iters": b[4] - a[4],
+               "graphed_share": (b[4] - a[4]) / iters if iters else None,
+               "decode_captures": w.eng.n_decode_captures,
+               "decode_capture_s": None if w.totals is None else
+               1e-9 * w.totals.ns.get("engine.decode_capture", 0)}}
     if a[1] is None:
         return out
     from repro_torch.obs import SpanTotals

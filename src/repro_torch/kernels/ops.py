@@ -121,14 +121,19 @@ def page_size(C: int) -> int:
 
 
 def decode_attention(q, cache_k, cache_v, context_lens, *,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over a contiguous per-request cache row.
 
     q (B,H,hd); cache_k/v (B,C,K,hd); context_lens (B,) valid slots. On the
     card the kernel addresses each row's slots directly, with no block
     table; the plain version views each row (without a copy) as C/page
-    pages under an identity block table."""
+    pages under an identity block table. ``out`` (B,H,hd) of q's dtype, if
+    given, receives the result (not under a mesh)."""
     if is_dtensor(cache_k):
+        if out is not None:
+            raise ValueError("decode_attention: no out= under a mesh")
         return _decode_sharded(q, cache_k, cache_v, context_lens, softcap)
     return _decode_rows(q, cache_k, cache_v, context_lens,
-                        page_size(cache_k.shape[1]), softcap=softcap)
+                        page_size(cache_k.shape[1]), softcap=softcap,
+                        out=out)

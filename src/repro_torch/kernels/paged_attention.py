@@ -102,8 +102,9 @@ _plan = functools.lru_cache(maxsize=None)(plan)
 # them. Calls that share a buffer must run one after another: a CUDA graph
 # keeps the buffer of the stream it was captured on, and replayed beside
 # eager calls or another graph of that stream, two kernels would take
-# tickets from one counter and elect the wrong merger. Nothing replays
-# decode so today (the engine captures no decode graph).
+# tickets from one counter and elect the wrong merger. The engine's decode
+# graphs (``serving/decode_graphs.py``) leave this kernel out of every
+# graph and launch it eagerly between replays, on one stream.
 _COUNTERS: dict = {}
 
 
@@ -136,10 +137,11 @@ def _lib():
 
 def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             block_tables: Optional[torch.Tensor], context_lens: torch.Tensor,
-            page: int, MP: int, softcap: Optional[float]) -> torch.Tensor:
-    """Launch the split-KV kernel on q's card. A null
-    ``block_tables`` (MP = 1) reads row b's keys from contiguous rows
-    (B, page, K, hd)."""
+            page: int, MP: int, softcap: Optional[float],
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the split-KV kernel on q's card, writing ``out`` (a new
+    tensor when None). A null ``block_tables`` (MP = 1) reads row b's keys
+    from contiguous rows (B, page, K, hd)."""
     B, H, hd = q.shape
     K = k_pages.shape[-2]
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
@@ -149,7 +151,10 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                         f"{v_pages.dtype}")
     if hd not in _HEAD_DIMS or H % K or H // K > MAX_GROUP \
             or v_pages.shape != k_pages.shape or k_pages.shape[-1] != hd \
-            or context_lens.shape != (B,):
+            or context_lens.shape != (B,) or (out is not None and (
+                out.shape != q.shape or out.dtype != q.dtype
+                or out.device != q.device or not out.is_contiguous()
+                or out.data_ptr() % 16)):
         raise ValueError(
             f"paged_decode_attention: unsupported shapes q {tuple(q.shape)} "
             f"pages {tuple(k_pages.shape)}")
@@ -173,7 +178,8 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         part = torch.empty(B * K * n_split * (H // K) * (hd + 2),
                            dtype=torch.float32, device=dev)
         cnt = _counters(dev, stream, B * K)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  None if bt is None else bt.data_ptr(), cl.data_ptr(),
                  out.data_ptr(), None if part is None else part.data_ptr(),
@@ -218,27 +224,32 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 @spanned("kernels.decode_call")
 def decode_rows(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 context_lens: torch.Tensor, page: int, *,
-                softcap: Optional[float] = None) -> torch.Tensor:
+                softcap: Optional[float] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over contiguous per-request rows, cache_k/v
     (B,C,K,hd). On the card the kernel addresses row b's slots directly
-    (no block table is built); on the CPU the plain version reads the rows
-    as C/page pages under an identity table."""
+    (no block table is built) and writes ``out`` (B,H,hd), contiguous, of
+    q's dtype, when given; on the CPU the plain version reads the rows as
+    C/page pages under an identity table and its result is copied into
+    ``out``."""
     refuse_grad("decode_rows", q, cache_k, cache_v)
     if traced(q):
-        return torch.empty_like(q)
+        return torch.empty_like(q) if out is None else out
     B, C, K, hd = cache_k.shape
     if q.device.type == "cuda":
         if cache_k.dim() != 4 or cache_k.shape[0] != q.shape[0]:
             raise ValueError(f"decode_rows: unsupported shapes q "
                              f"{tuple(q.shape)} cache {tuple(cache_k.shape)}")
-        return _launch(q, cache_k, cache_v, None, context_lens, C, 1, softcap)
+        return _launch(q, cache_k, cache_v, None, context_lens, C, 1, softcap,
+                       out)
     mp = C // page
     bt = (torch.arange(B, device=q.device)[:, None] * mp
           + torch.arange(mp, device=q.device)[None, :]).to(torch.int32)
-    return paged_decode_attention(
+    res = paged_decode_attention(
         q, cache_k.reshape(B * mp, page, K, hd),
         cache_v.reshape(B * mp, page, K, hd), bt,
         context_lens.to(torch.int32), softcap=softcap)
+    return res if out is None else out.copy_(res)
 
 
 _ERRORS = {1001: "the driver has no cuTensorMapEncodeTiled",

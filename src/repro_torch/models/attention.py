@@ -4,7 +4,8 @@ Two entry points, mirroring ``repro.models.attention``:
   * ``attn_prefill`` — attention over a whole (possibly token-packed or
     chunked) sequence; returns the layer output and the K/V to seed a cache.
   * ``attn_decode``  — one new token per row against its cache row, which it
-    updates in place.
+    updates in place; ``attn_decode_pieces`` is the same as a program cut
+    at its paged-decode call (``DecodeCall``), which ``run_calls`` runs.
 
 All core attention of these two goes through ``repro_torch.kernels.ops``:
 the CUDA kernels on the card, their plain versions on the CPU. Training
@@ -16,7 +17,7 @@ as the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,20 +165,63 @@ def _write_slot_sharded(cache, slot, new) -> None:
     c[b, ls] = torch.where(mine[:, None, None], n.to(c.dtype), c[b, ls])
 
 
-def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
-                cache_k: torch.Tensor, cache_v: torch.Tensor, *,
-                kv_heads: Optional[int] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token decode. x (B,1,d); pos (B,) absolute position of the new
-    token; cache_k/v (B,C,K,hd), C = full context or the sliding window.
+class DecodeCall(NamedTuple):
+    """One attention layer's paged-decode call in a decode step: q
+    (B,H,hd), the layer's cache rows (B,C,K,hd) with the step's new K/V
+    written, the step's positions (B,), whether the rows are a
+    sliding-window ring of C slots, and the logit softcap."""
+    q: torch.Tensor
+    cache_k: torch.Tensor
+    cache_v: torch.Tensor
+    pos: torch.Tensor
+    ring: bool
+    softcap: Optional[float]
 
-    The new K/V are written into the cache rows first (in place, where the
-    reference returns updated arrays from a donated buffer), then the token
-    attends. With ``active`` (B,) bool every row still writes and attends
-    over its own new K/V, as the reference's rows do, and the inactive rows'
-    slots get their old values back afterwards, bit for bit (the reference's
-    engine drops those writes after the step): an inactive slot may hold a
-    queued request's live KV. Returns y (B,1,d)."""
+    @property
+    def lens_key(self) -> Tuple[int, bool]:
+        """What ``lens`` depends on besides ``pos``."""
+        return self.cache_k.shape[1], self.ring
+
+    def lens(self) -> torch.Tensor:
+        """Each row's valid slots (B,): every written slot. Softmax is
+        permutation-invariant, so a ring's slot order does not matter and a
+        count (at most C) suffices."""
+        C = self.cache_k.shape[1]
+        return torch.clamp(self.pos + 1, max=C) if self.ring \
+            else self.pos + 1
+
+    def run(self, lens: Optional[torch.Tensor] = None,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The call, eagerly: (B,H,hd), written into ``out`` when given;
+        ``lens`` defaults to ``self.lens()``."""
+        return ops.decode_attention(
+            self.q, self.cache_k, self.cache_v,
+            self.lens() if lens is None else lens, softcap=self.softcap,
+            out=out)
+
+
+def run_calls(prog):
+    """Run a decode program (``attn_decode_pieces``,
+    ``model.decode_pieces``): each ``DecodeCall`` it yields runs eagerly
+    and its output is sent back. Returns the program's value."""
+    out = None
+    while True:
+        try:
+            call = prog.send(out)
+        except StopIteration as done:
+            return done.value
+        out = call.run()
+
+
+def attn_decode_pieces(p, cfg: ModelConfig, x: torch.Tensor,
+                       pos: torch.Tensor, cache_k: torch.Tensor,
+                       cache_v: torch.Tensor, *,
+                       kv_heads: Optional[int] = None,
+                       active: Optional[torch.Tensor] = None):
+    """``attn_decode`` as a program (a generator) cut at its paged-decode
+    call: it writes the new K/V, yields the ``DecodeCall`` and takes the
+    call's output (B,H,hd) back, then restores the inactive rows' slots
+    and returns y (B,1,d)."""
     B = x.shape[0]
     C = cache_k.shape[1]
     nkv = kv_heads or cfg.num_kv_heads
@@ -198,16 +242,31 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
             old_k, old_v = cache_k[bidx, slot], cache_v[bidx, slot]
         cache_k[bidx, slot] = k_new
         cache_v[bidx, slot] = v_new
-    # every written slot is valid; softmax is permutation-invariant, so
-    # ring-buffer slot order does not matter — a count suffices
-    n_valid = torch.clamp(pos + 1, max=C) if windowed else pos + 1
-    out = ops.decode_attention(q[:, 0], cache_k, cache_v, n_valid,
-                               softcap=cfg.attn_logit_softcap)[:, None]
+    out = (yield DecodeCall(q[:, 0], cache_k, cache_v, pos, windowed,
+                            cfg.attn_logit_softcap))[:, None]
     if active is not None:
         m = active[:, None, None]
         cache_k[bidx, slot] = torch.where(m, k_new, old_k)
         cache_v[bidx, slot] = torch.where(m, v_new, old_v)
     return merge_heads(out) @ p["wo"]
+
+
+def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
+                cache_k: torch.Tensor, cache_v: torch.Tensor, *,
+                kv_heads: Optional[int] = None,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token decode. x (B,1,d); pos (B,) absolute position of the new
+    token; cache_k/v (B,C,K,hd), C = full context or the sliding window.
+
+    The new K/V are written into the cache rows first (in place, where the
+    reference returns updated arrays from a donated buffer), then the token
+    attends. With ``active`` (B,) bool every row still writes and attends
+    over its own new K/V, as the reference's rows do, and the inactive rows'
+    slots get their old values back afterwards, bit for bit (the reference's
+    engine drops those writes after the step): an inactive slot may hold a
+    queued request's live KV. Returns y (B,1,d)."""
+    return run_calls(attn_decode_pieces(p, cfg, x, pos, cache_k, cache_v,
+                                        kv_heads=kv_heads, active=active))
 
 
 # --------------------------------------------------------------------------- #

@@ -377,10 +377,14 @@ def _attn_block_prefill(p, cfg, x, positions, kv_heads, segment_ids,
 
 
 def _attn_block_decode(p, cfg, x, pos, ck, cv, kv_heads, active):
+    """An attention block of a decode step, as a program: it yields the
+    layer's paged-decode call (``attention.attn_decode_pieces``) and
+    returns x."""
     p = gather_fsdp(p, skip=MOE)
     h = rms_norm(x, p[ATTN_NORM], cfg.rms_eps)
-    x = _constrain_acts(x + attention.attn_decode(
-        p, cfg, h, pos, ck, cv, kv_heads=kv_heads, active=active))
+    y = yield from attention.attn_decode_pieces(
+        p, cfg, h, pos, ck, cv, kv_heads=kv_heads, active=active)
+    x = _constrain_acts(x + y)
     y, _ = _ffn(p, cfg, rms_norm(x, p[MLP_NORM], cfg.rms_eps))
     return _constrain_acts(x + y)
 
@@ -517,19 +521,29 @@ def _write_state(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
         d.copy_(src)
 
 
-def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                pos: torch.Tensor, caches: Cache,
-                active: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
-    """tokens (B,1); pos (B,) absolute positions. Updates ``caches`` in
-    place (only rows where ``active``, when given: K/V writes and recurrent
-    states alike) and returns (logits (B,V), caches)."""
+def decode_pieces(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  pos: torch.Tensor, caches: Cache,
+                  active: Optional[torch.Tensor] = None):
+    """``decode_step`` as a program (a generator) cut at each paged-decode
+    call: it yields each attention layer's ``attention.DecodeCall``, in
+    layer order (a shared-block invocation's after the layer it follows),
+    takes the call's output (B,H,hd) back, and returns the logits (B,V).
+    A piece is the code between two calls: the first is the embedding and
+    layer 0 up to its new K/V writes; a middle one the rest of a layer
+    (the inactive rows' slots restored, ``wo``, the residual, the FFN or
+    MoE) and the next attention layer up to its writes; the last the last
+    layer's rest and the logits. Recurrent layers have no call and fall
+    inside the piece around them (a stack without attention is one
+    piece). ``attention.run_calls`` runs it eagerly; the serving engine
+    captures each piece once as a CUDA graph
+    (``serving/decode_graphs.py``)."""
     x = embed(cfg, params, tokens)
     for kind, i, p, inv in _walk(cfg, params):
         x = _constrain_acts(x)
         if kind == ATTN:
-            x = _attn_block_decode(p, cfg, x, pos, caches[ATTN]["k"][i],
-                                   caches[ATTN]["v"][i], None, active)
+            x = yield from _attn_block_decode(
+                p, cfg, x, pos, caches[ATTN]["k"][i], caches[ATTN]["v"][i],
+                None, active)
         else:
             state = _index(caches[kind], i)
             p = gather_fsdp(p)
@@ -539,11 +553,23 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             _write_state(state, new, active)
         if inv is not None:
             scfg = _shared_cfg(cfg)
-            x = _attn_block_decode(
+            x = yield from _attn_block_decode(
                 shared_params(params, cfg), scfg, x, pos,
                 caches[SHARED]["k"][inv], caches[SHARED]["v"][inv],
                 scfg.num_kv_heads, active)
-    return logits_fn(cfg, params, x[:, 0]), caches
+    return logits_fn(cfg, params, x[:, 0])
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                pos: torch.Tensor, caches: Cache,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B,1); pos (B,) absolute positions. Updates ``caches`` in
+    place (only rows where ``active``, when given: K/V writes and recurrent
+    states alike) and returns (logits (B,V), caches): ``decode_pieces``
+    with each attention call run eagerly."""
+    return attention.run_calls(decode_pieces(cfg, params, tokens, pos,
+                                             caches, active=active)), caches
 
 
 # --------------------------------------------------------------------------- #

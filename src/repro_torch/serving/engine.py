@@ -36,6 +36,13 @@ sampling. Its hot path follows the reference's:
     engine runs K iterations back to back in one host loop
     (``_mega_fn``) and replays the K scheduler iterations against the
     (K, B) token matrix.
+  * Decode graphs (``decode_graphs.DecodeGraphs``, the async iteration of
+    unsharded caches): on a CUDA device an async decode iteration replays
+    CUDA graphs of the pieces between its paged-decode calls, captured at
+    the first async decode, and calls the hand-written kernel eagerly
+    between them; elsewhere the same program runs its pieces as plain
+    calls. The legacy sync path and sharded caches run
+    ``model.decode_step``.
   * KV migration: ``export_kv`` / ``inject_kv`` move a queued request's
     cache image (CPU tensors with a CRC) and slot state between engines,
     for the fleet's prefill/decode roles, evacuation and crash recovery
@@ -50,15 +57,19 @@ inside), ``engine.decode``, ``scheduler.finish_iteration`` (with the
 completions), then ``engine.drain`` for a flush. Inside ``engine.decode``:
 ``engine.drain`` (the readback ring's device-to-host copy and appends),
 ``engine.decode_launch`` (one iteration's or one megastep window's
-launches, with a ``kernels.decode_call`` a layer), ``engine.eos_readback``
-(blocking EOS flag reads) and ``engine.mega_replay`` (the host replay of a
-window's row). ``model.moe`` sits inside a MoE stack's calls. With
-``engine.spans = SpanTotals()`` each span adds its host nanoseconds and a
-call; without totals and profiler a span costs one flag read. Under
-``torch.profiler`` only ``engine.prefill_wave``, ``engine.prefill_chunks``,
-``engine.decode`` and ``model.moe`` show as ranges. The profiler credits a
-range with the device time of the aten kernels launched inside it; the two
-attention kernels, launched through ctypes, it ties to no op or range.
+launches, with a ``kernels.decode_call`` a layer, and
+``engine.decode_capture`` when the decode graphs are captured),
+``engine.eos_readback`` (blocking EOS flag reads) and
+``engine.mega_replay`` (the host replay of a window's row). ``model.moe``
+sits inside a MoE stack's calls (in a captured decode piece, at the
+capture only). With ``engine.spans = SpanTotals()`` each span adds its
+host nanoseconds and a call; without totals and profiler a span costs one
+flag read. Under ``torch.profiler`` only ``engine.prefill_wave``,
+``engine.prefill_chunks``, ``engine.decode`` and ``model.moe`` show as
+ranges. The profiler credits a range with the device time of the aten
+kernels launched inside it (and of a replayed decode piece's, through the
+replay's op range); the two attention kernels, launched through ctypes,
+it ties to no op or range.
 
 Each ``GenRequest`` carries host ``time.monotonic()`` stamps of its first
 token: ``t_first_sampled`` when the prefill enqueued it into the readback
@@ -88,12 +99,14 @@ from ..core.predictor import NoisyPredictor, apply_padding
 from ..core.pressure import WatermarkGuard
 from ..core.request import Request, State
 from ..core.scheduler import SchedulerConfig, make_econoserve
+from ..distributed.dtensor import is_dtensor
 from ..kernels.ref import POS_INVALID
 from ..models import model
 from ..models.config import ATTN, ModelConfig
 from ..obs import MetricsRegistry, publish_engine
 from ..obs.spans import SpanTotals, set_current, span
 
+from .decode_graphs import DecodeGraphs
 from .sampling import SamplingParams, sample_in_graph, sample_per_request
 
 MIN_SEQ_BUCKET = 16
@@ -236,6 +249,22 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def advance(st: Dict[str, torch.Tensor], gen: torch.Generator,
+            logits: torch.Tensor, active: torch.Tensor, need_sample: bool,
+            need_topk: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail of an async decode iteration over the rows ``active``:
+    sampling (inactive rows greedy), the EOS check, and ``last_tok`` and
+    ``pos`` advanced in place. Returns (tokens (B,), eos_hit (B,))."""
+    temps = torch.where(active, st["temps"], torch.zeros_like(st["temps"]))
+    top_ks = torch.where(active, st["top_ks"],
+                         torch.zeros_like(st["top_ks"]))
+    new = sample_in_graph(logits, gen, temps, top_ks, need_sample, need_topk)
+    eos_hit = active & (st["eos"] >= 0) & (new == st["eos"])
+    torch.where(active, new, st["last_tok"], out=st["last_tok"])
+    st["pos"].add_(active.to(st["pos"].dtype))
+    return new, eos_hit
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
                  max_batch: int = 8, capacity: int = 512,
@@ -362,9 +391,21 @@ class ServingEngine:
             "top_ks": torch.zeros(max_batch, dtype=torch.int32, device=dev),
             "eos": torch.full((max_batch,), -1, dtype=torch.int32,
                               device=dev),
+            # the decode rows, copied in when they change
+            "active": torch.zeros(max_batch, dtype=torch.bool, device=dev),
         }
         self._active_bytes: Optional[bytes] = None
-        self._active_dev: Optional[torch.Tensor] = None
+        # the async iteration of unsharded caches, over ``_dev`` at fixed
+        # addresses; captured into CUDA graphs on a card (``_graphed``,
+        # which the graphs' equivalence tests clear to run its pieces as
+        # plain calls there too)
+        self._decode_graphs = DecodeGraphs(
+            cfg, self._dev, self.gen, advance) if self._async and not any(
+                is_dtensor(t) for sub in self.caches.values()
+                for t in sub.values()) else None
+        self._graphed = self._decode_graphs is not None and \
+            dev.type == "cuda"
+        self.n_graphed_decode_iters = 0
         # ring entries: (tokens, row, [(slot_row, rid)], ready event).
         # ``tokens`` is a (B,) sampled batch (row None) or a (Kmax, B)
         # megastep window shared by K entries, ``row`` selecting the
@@ -400,39 +441,46 @@ class ServingEngine:
             t = t.to(dtype)
         return t.to(self.device)
 
+    @property
+    def n_decode_captures(self) -> int:
+        """Captures of the decode graphs (each of every piece and tail)."""
+        g = self._decode_graphs
+        return 0 if g is None else g.n_captures
+
     def _one_iter(self, active: torch.Tensor, need_sample: bool,
                   need_topk: bool):
         """One async decode iteration: forward pass with the cache write
         masked to active rows, sampling, EOS check and pos advance — shared
         by the single-step path and the megastep loop. Updates ``caches``
-        and ``_dev`` in place; returns (tokens, eos_hit)."""
-        st = self._dev
+        and ``_dev`` in place; returns (tokens, eos_hit). Through the decode
+        graphs ``active`` is ``_dev["active"]``, the rows run are ``active
+        & ~graphs.stop``, and a replay returns the graphs' outputs, which
+        the next iteration overwrites. Sharded caches run
+        ``model.decode_step``."""
+        graphs = self._decode_graphs
+        if graphs is not None:
+            return graphs.run(self.params, self.caches, need_sample,
+                              need_topk, self._graphed)
         logits, _ = model.decode_step(self.cfg, self.params,
-                                      st["last_tok"][:, None], st["pos"],
-                                      self.caches, active=active)
-        temps = torch.where(active, st["temps"], torch.zeros_like(
-            st["temps"]))
-        top_ks = torch.where(active, st["top_ks"], torch.zeros_like(
-            st["top_ks"]))
-        new = sample_in_graph(logits, self.gen, temps, top_ks, need_sample,
-                              need_topk)
-        eos_hit = active & (st["eos"] >= 0) & (new == st["eos"])
-        st["last_tok"] = torch.where(active, new, st["last_tok"])
-        st["pos"] = st["pos"] + active.to(st["pos"].dtype)
-        return new, eos_hit
+                                      self._dev["last_tok"][:, None],
+                                      self._dev["pos"], self.caches,
+                                      active=active)
+        return advance(self._dev, self.gen, logits, active, need_sample,
+                       need_topk)
 
     def _mega_fn(self, active: torch.Tensor, k_iters: int, need_sample: bool,
                  need_topk: bool, stop_on_eos: bool):
         """Decode megastep: ``k_iters`` iterations of ``_one_iter`` in one
-        host loop (the reference runs them as one ``lax.while_loop``; a
-        CUDA graph of the window is later work), collecting each
-        iteration's tokens and EOS flags into (Kmax, B) buffers.
+        host loop (the reference runs them as one ``lax.while_loop``),
+        collecting each iteration's tokens and EOS flags into (Kmax, B)
+        buffers.
 
         ``stop_on_eos``: under memory pressure the reference exits its loop
         after the iteration where EOS fired. Here a device stop flag masks
         every later iteration to no active rows, so caches, ``pos`` and
         ``last_tok`` advance exactly as on the K=1 path, and rows past the
-        stop stay zero.
+        stop stay zero. With the decode graphs the flag is the graphs'
+        ``stop``, cleared again after the window.
 
         The K=1 path draws from ``self.gen`` in each iteration where a live
         row samples; a window draws in each of its iterations when a row
@@ -447,18 +495,23 @@ class ServingEngine:
                          device=self.device)
         eb = torch.zeros((self._mega_max, B), dtype=torch.bool,
                          device=self.device)
-        stop = torch.zeros((), dtype=torch.bool, device=self.device)
+        graphs = self._decode_graphs
+        stop = torch.zeros((), dtype=torch.bool, device=self.device) \
+            if graphs is None else graphs.stop
         gen_states = [] if need_sample else None
         for i in range(k_iters):
-            act = active & ~stop if stop_on_eos else active
+            act = active & ~stop if stop_on_eos and graphs is None \
+                else active
             new, eos_hit = self._one_iter(act, need_sample, need_topk)
             tb[i] = torch.where(stop, torch.zeros_like(new), new) \
                 if stop_on_eos else new
             eb[i] = eos_hit
             if stop_on_eos:
-                stop = stop | eos_hit.any()
+                stop.logical_or_(eos_hit.any())
             if gen_states is not None:
                 gen_states.append(self.gen.get_state())
+        if stop_on_eos and graphs is not None:
+            stop.zero_()
         return tb, eb, gen_states
 
     def _seed_slots(self, slots, first: torch.Tensor, fallback, use_first,
@@ -1355,7 +1408,7 @@ class ServingEngine:
         ab = active.tobytes()
         if ab != self._active_bytes:
             self._active_bytes = ab
-            self._active_dev = self._t(active)
+            self._dev["active"].copy_(torch.from_numpy(active))
         K = self.scheduler.decode_horizon(plan, self._mega_max)
         if K > 1:
             sched = self.scheduler
@@ -1363,7 +1416,8 @@ class ServingEngine:
                                                 or sched.gt_queue)
             with span("engine.decode_launch", self.spans):
                 self._mega_toks, eos_buf, gen_states = self._mega_fn(
-                    self._active_dev, K, need_sample, need_topk, stop_on_eos)
+                    self._dev["active"], K, need_sample, need_topk,
+                    stop_on_eos)
             self.n_decode_dispatches += 1
             self.n_mega_windows += 1
             if eos_possible:
@@ -1386,10 +1440,13 @@ class ServingEngine:
             self._consume_mega_row(reqs)
             return
         with span("engine.decode_launch", self.spans):
-            toks, eos_hit = self._one_iter(self._active_dev, need_sample,
+            toks, eos_hit = self._one_iter(self._dev["active"], need_sample,
                                            need_topk)
+            if self._graphed:
+                toks = toks.clone()     # the ring outlives the graph output
         self.n_decode_dispatches += 1
         self.decode_iters += 1
+        self.n_graphed_decode_iters += self._graphed
         self._enqueue_drain(
             toks, None, [(self.slot_of[r.rid], r.rid) for r in reqs])
         if eos_possible:
@@ -1421,6 +1478,7 @@ class ServingEngine:
             self._mega_left -= 1
             i = self._mega_row
             self.decode_iters += 1
+            self.n_graphed_decode_iters += self._graphed
             self._enqueue_drain(
                 self._mega_toks, i,
                 [(self.slot_of[r.rid], r.rid) for r in reqs],

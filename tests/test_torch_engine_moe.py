@@ -158,15 +158,16 @@ def run_drops(cfgs, ecfg, monkeypatch):
     against the reference engine: the streams, completion times, decisions
     and counters equal, 16 rows decoded together, and decode calls did
     drop (counted by a wrapper of ``moe._route`` inside
-    ``model.decode_step``). Returns the port's engine."""
+    ``model.decode_pieces``, the decode step of both decode paths).
+    Returns the port's engine."""
     drops, in_decode, widest = [], [], [0]
-    route, decode_step = moe._route, model.decode_step
+    route, pieces = moe._route, model.decode_pieces
 
     def decoding(*a, **kw):
         widest[0] = max(widest[0], int(kw["active"].sum()))
         in_decode.append(True)
         try:
-            return decode_step(*a, **kw)
+            return (yield from pieces(*a, **kw))
         finally:
             in_decode.pop()
 
@@ -177,7 +178,7 @@ def run_drops(cfgs, ecfg, monkeypatch):
             drops.append(int((~out[3]).sum()))
         return out
 
-    monkeypatch.setattr(model, "decode_step", decoding)
+    monkeypatch.setattr(model, "decode_pieces", decoding)
     monkeypatch.setattr(moe, "_route", counted)
     scfg = dict(kvc_tokens=MB * 128, block_size=16, tfs=256,
                 max_model_len=128, max_batch_reqs=MB)

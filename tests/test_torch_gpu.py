@@ -469,7 +469,12 @@ def test_moe_engine_that_drops_at_decode_on_the_card_matches_the_cpu(card):
     call routes 16 rows to 2 of 4 experts with 8 slots each, so decode
     calls drop. The card's engine gives the CPU engine's greedy streams,
     completion times and counters on the same weights, and each decode
-    call drops as many assignments on both."""
+    call drops as many assignments on both. The drops are counted by a
+    wrapper of ``moe._route`` inside ``model.decode_pieces``, which a
+    replayed decode graph does not call: that card engine runs its decode
+    pieces as plain calls (``_graphed`` cleared). A default card engine,
+    its decode graphs replayed, serves the same streams, completion times,
+    ``sync_counts`` and paged-decode launches as the counted one."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import SchedulerConfig
@@ -479,15 +484,15 @@ def test_moe_engine_that_drops_at_decode_on_the_card_matches_the_cpu(card):
         dtype="float32", param_dtype="float32", capacity_factor=0.5)
     scfg = dict(kvc_tokens=16 * 128, block_size=16, tfs=256,
                 max_model_len=128, max_batch_reqs=16)
-    route, decode_step = moe._route, model.decode_step
+    route, pieces = moe._route, model.decode_pieces
 
-    def run(device, params=None):
+    def run(device, params=None, graphed=False):
         drops, in_decode = [], []
 
         def decoding(*a, **kw):
             in_decode.append(True)
             try:
-                return decode_step(*a, **kw)
+                return (yield from pieces(*a, **kw))
             finally:
                 in_decode.pop()
 
@@ -500,28 +505,38 @@ def test_moe_engine_that_drops_at_decode_on_the_card_matches_the_cpu(card):
         eng = ServingEngine(cfg, params, max_batch=16, capacity=128,
                             rl_accuracy=1.0, device=device,
                             scheduler_cfg=SchedulerConfig(**scfg))
+        eng._graphed = graphed
         rng = np.random.default_rng(23)
         reqs = [GenRequest(prompt=[int(t) for t in rng.integers(
             0, cfg.vocab_size, int(rng.integers(20, 61)))],
             params=SamplingParams(max_new_tokens=int(rng.integers(12, 25))))
             for _ in range(18)]
-        moe._route, model.decode_step = counted, decoding
+        if not graphed:     # a replay calls no Python: nothing to count
+            moe._route, model.decode_pieces = counted, decoding
         try:
             eng.run(reqs)
         finally:
-            moe._route, model.decode_step = route, decode_step
+            moe._route, model.decode_pieces = route, pieces
         return eng, [(g.output, g.t_done) for g in reqs], \
-            torch.stack(drops).cpu().tolist()
+            [int(d) for d in drops]
 
     paged_decode_attention.launches = 0
     gpu, got, got_drops = run("cuda")
-    assert paged_decode_attention.launches == cfg.num_layers * \
-        gpu.decode_iters
+    n_launches = paged_decode_attention.launches
+    assert n_launches == cfg.num_layers * gpu.decode_iters
     cpu, want, want_drops = run("cpu", {k: t.cpu()
                                         for k, t in gpu.params.items()})
     assert got == want
     assert gpu.sync_counts == cpu.sync_counts
     assert got_drops == want_drops and sum(got_drops) > 0
+    paged_decode_attention.launches = 0
+    graphed, replayed, _ = run("cuda", gpu.params, graphed=True)
+    assert replayed == got
+    assert graphed.sync_counts == gpu.sync_counts
+    assert paged_decode_attention.launches == n_launches
+    assert graphed.n_graphed_decode_iters == graphed.decode_iters \
+        == gpu.decode_iters
+    assert graphed.n_decode_captures == 1 and gpu.n_decode_captures == 0
 
 
 @pytest.mark.parametrize("arch,dtype", [
@@ -742,3 +757,161 @@ def test_other_families_grad_step_on_the_card_matches_the_cpu(card, arch):
     for k, g in want.items():
         tol = 1e-4 * float(g.abs().max())
         assert float((got[k].cpu() - g).abs().max()) <= tol, k
+
+
+# --------------------------------------------------------------------- #
+# the decode graphs (``serving/decode_graphs.py``) against eager decode
+# --------------------------------------------------------------------- #
+def _graph_engine(cfg, graphs: bool, params=None, K: int = 8, **kw):
+    """A card engine whose decode graphs are replayed (``graphs``) or whose
+    decode pieces run as plain calls (``_graphed`` cleared)."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=8, capacity=256,
+                        rl_accuracy=1.0, seed=0, device="cuda",
+                        engine_cfg=EngineConfig(decode_megastep=K), **kw)
+    assert eng._graphed
+    eng._graphed = graphs
+    return eng
+
+
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "phi3_5_moe_42b",
+                                  "zamba2_7b"])
+def test_decode_graphs_serve_what_eager_decode_serves(card, arch):
+    """bf16 engines of reduced mistral-nemo (a 64-token window: ring
+    caches), phi3.5-MoE and zamba2 (Mamba2 around its shared attention),
+    each once with the decode graphs and once eagerly on the same weights:
+    the same greedy streams, completion times, ``sync_counts`` and decode
+    iterations, and as many paged-decode launches, one an attention call
+    an iteration; every decode iteration replayed, after one capture."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config(arch).reduced()
+    if arch == "mistral_nemo_12b":
+        cfg = cfg.with_(sliding_window=64)
+    n_attn = model.num_shared_invocations(cfg) + \
+        sum(k == "A" for k in cfg.pattern())
+
+    def run(graphs, params=None):
+        eng = _graph_engine(cfg, graphs, params)
+        paged_decode_attention.launches = 0
+        reqs = _requests(cfg, 10, seed=5, lo=24, hi=120)
+        eng.run(reqs)
+        return eng, [(g.output, g.t_done) for g in reqs], \
+            paged_decode_attention.launches
+
+    graphed, got, got_n = run(True)
+    eager, want, want_n = run(False, graphed.params)
+    assert got == want
+    assert graphed.sync_counts == eager.sync_counts
+    assert graphed.decode_iters == eager.decode_iters > 0
+    assert graphed.n_mega_windows == eager.n_mega_windows > 0
+    assert got_n == want_n == n_attn * graphed.decode_iters
+    assert graphed.n_graphed_decode_iters == graphed.decode_iters
+    assert graphed.n_decode_captures == 1
+    assert eager.n_graphed_decode_iters == eager.n_decode_captures == 0
+
+
+def test_decode_graphs_keep_the_generator_rule(card):
+    """Sampled rows (every third request at temperature 1.3, top-k 4)
+    with an EOS token that cuts megastep windows while requests wait: the
+    graphed engine at K = 8 serves the eager engine's K = 1 streams and
+    completion times and leaves the generator in its state, as
+    ``tests/test_torch_engine_rng.py`` asks of the eager windows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving import GenRequest, SamplingParams
+    cfg = get_config("qwen3_8b").reduced(layers=2).with_(vocab_size=256)
+    scfg = SchedulerConfig(kvc_tokens=512, block_size=16, tfs=256,
+                           max_model_len=256, max_batch_reqs=8,
+                           reserve_frac=0.0, pad_ratio=0.0, bucket=16)
+
+    def run(graphs, K, eos, params=None):
+        eng = _graph_engine(cfg, graphs, params, K, scheduler_cfg=scfg)
+        cuts, mega = [], eng._mega_fn
+
+        def spy(active, k_iters, need_sample, need_topk, stop_on_eos):
+            out = mega(active, k_iters, need_sample, need_topk, stop_on_eos)
+            cuts.append(need_sample and stop_on_eos and bool(
+                out[1][:k_iters - 1, active].any()))
+            return out
+
+        eng._mega_fn = spy
+        reqs = [GenRequest(prompt=list(range(3 + i, 19 + i)),
+                           params=SamplingParams(
+                               max_new_tokens=112,
+                               temperature=1.3 if i % 3 == 0 else 0.0,
+                               top_k=4 if i % 3 == 0 else 0, eos_token=eos))
+                for i in range(12)]
+        eng.run(reqs)
+        return eng, [(g.output, g.t_done) for g in reqs], sum(cuts)
+
+    first, out, _ = run(False, 1, None)
+    greedy = out[1][0]
+    eos = greedy[int(0.7 * len(greedy))]
+    k1, want, _ = run(False, 1, eos, first.params)
+    k8, got, cuts = run(True, 8, eos, first.params)
+    assert cuts > 0
+    assert got == want
+    assert torch.equal(k8.gen.get_state(), k1.gen.get_state())
+    assert k8.n_graphed_decode_iters == k8.decode_iters > 0
+
+
+def test_graphed_decode_calls_stay_visible_to_the_benchmark(card):
+    """The benchmark's trace reads each paged-decode call's arguments by
+    wrapping ``ops._decode_rows`` (``econobench.trace.record_calls``) and
+    reads its context lengths once the slice has closed: under a graphed
+    engine every call is recorded, with a tensor of its iteration's own
+    (the calls of one iteration share it) that still holds the call's
+    values at the end. Under ``torch.profiler``,
+    ``econobench.trace.read`` gives ``engine.decode`` as many launches a
+    decode iteration as the eager engine's, within 5%, and no device
+    event carries the replay op's name."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from econobench import trace
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.decode_graphs import REPLAY
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cfg = _small_bf16()
+    calls = trace.Calls(on=True)
+    undo = trace.record_calls(calls)
+    seen, inner = [], kops._decode_rows
+
+    def keep(q, ck, cv, lens, page, **kw):
+        seen.append(lens.clone())
+        return inner(q, ck, cv, lens, page, **kw)
+
+    kops._decode_rows = keep
+    try:
+        eng = _graph_engine(cfg, True)
+        eng.run(_requests(cfg, 8, seed=2))
+    finally:
+        kops._decode_rows = inner
+        undo()
+    assert len(calls.decode) == len(seen) == \
+        cfg.num_layers * eng.decode_iters > 0
+    assert len({id(c[2]) for c in calls.decode}) == eng.decode_iters
+    for (_, _, lens), want in zip(calls.decode, seen):
+        assert torch.equal(lens, want)
+
+    per_iter = {}
+    for graphs in (True, False):
+        eng = _graph_engine(cfg, graphs, eng.params)
+        eng.run(_requests(cfg, 4, seed=3))      # the capture, outside
+        reqs = _requests(cfg, 8, seed=2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(trace.SLICE_SPAN):
+                it0 = eng.decode_iters
+                eng.run(reqs)
+                torch.cuda.synchronize()
+        p = trace.read(prof)
+        assert not any(REPLAY in e.name() for e in
+                       prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA)
+        per_iter[graphs] = p.span_launches["engine.decode"] / \
+            (eng.decode_iters - it0)
+    assert abs(per_iter[True] / per_iter[False] - 1) < 0.05, per_iter

@@ -125,3 +125,7 @@ def test_watched_loop_on_a_tiny_cell():
     assert all(tt[k]["p50"] >= 0 for k in ss.STAGES)
     assert sum(tt[k]["tail_mean"] for k in ss.STAGES) >= tt["ttft"]["p95"]
     assert out["end_to_end"]["ttft_p95_ms"] > 0
+    # a CPU engine decodes eagerly: no graph is captured or replayed
+    assert out["graphs"]["graphed_decode_iters"] == 0
+    assert out["graphs"]["decode_captures"] == 0
+    assert out["graphs"]["decode_capture_s"] == 0
